@@ -5,16 +5,33 @@ Phases, each fatal on failure:
 
 1. toolchain: torch, CUDA, device capability, nvcc, card and power limit;
 2. build: every (KernelGen stencil bench, mode) kernel in one nvcc call,
-   then ``SHFL`` instructions counted per kernel in the built SASS;
-3. parity: per bench, the shuffle plan (emulator detection vs schedule)
-   and each mode's kernel against the plain PyTorch version at a ragged
-   medium shape, the three modes bitwise equal;
-4. the main path at the paper's sizes (Jacobi 32768x32768, tricubic
-   512x1024x1024): DSL program -> PTX -> symbolic emulation -> shuffle
-   detection -> ``stencil_apply`` in every mode, with launch counts read
-   around it; then each kernel timed with CUDA events against its bound,
-   the plain version, a copy of the same bytes and (Jacobi) ``conv2d``;
-5. a ``kernels`` JSON line, and as the last line the device record.
+   and, at the same time, the conv1d kernels (naive / shuffle, widths 3
+   and 4, float32 and bfloat16) and the SSD kernel, each source in an
+   nvcc call of its own; then ``SHFL``/``LDG`` instructions counted per
+   kernel in the built SASS;
+3. parity: per stencil bench, the shuffle plan (emulator detection vs
+   schedule) and each mode's kernel against the plain PyTorch version at
+   a ragged medium shape, the three modes bitwise equal; conv1d (both
+   modes, bitwise equal) and SSD (y and final state, chunk 8 vs 64)
+   against their plain versions at ragged shapes;
+4. the stencil main path at the paper's sizes (Jacobi 32768x32768,
+   tricubic 512x1024x1024): DSL program -> PTX -> symbolic emulation ->
+   shuffle detection -> ``stencil_apply`` in every mode, with launch
+   counts read around it; then each kernel timed with CUDA events against
+   its bound, the plain version, a copy of the same bytes and (Jacobi)
+   ``conv2d``;
+5. the serving path: mamba2-1.3b at its published widths (bf16, random
+   weights from a seed) serves 4 requests x 1024-token prompts x 32
+   greedy tokens through ``repro_torch.launch.serve``, with launch counts
+   read around the run (48 conv1d ``shuffle`` and 48 SSD launches per
+   prefill); layer 0's conv1d and SSD inputs are captured on that run,
+   each kernel (conv1d in both modes, bitwise equal) is held against its
+   plain version on them and timed beside its bound, the plain version
+   and (conv1d)
+   ``F.conv1d(groups=C)`` + SiLU; the reduced model on the card against
+   the plain path on the CPU; and a float32 continuity check at full
+   width (prefill 512 == prefill 256 + 256 decode steps);
+6. a ``kernels`` JSON line, and as the last line the device record.
 
 Run from the repository root:  python3 chip_smoke.py
 Needs one CUDA device and nvcc for sm_90a; exits non-zero without them.
@@ -30,6 +47,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 REPORT = os.path.join(ROOT, "build", "chip_smoke.json")
@@ -37,6 +55,7 @@ SEED = 0
 TOL = dict(rtol=2e-4, atol=2e-4)        # the reference kernel tests' tolerance
 HBM_BYTES_PER_S = 3.35e12               # H100 SXM data sheet
 F32_FLOPS = 67e12                       # H100 SXM, float32 outside tensor cores
+BF16_FLOPS = 989e12                     # H100 SXM, bf16 tensor cores, dense
 MEDIUM = {1: (1_048_579,), 2: (2050, 4100), 3: (66, 260, 1030)}
 PAPER = {"jacobi": (32768, 32768), "tricubic": (512, 1024, 1024)}
 STENCIL_BENCHES = ["jacobi", "gaussblur", "laplacian", "wave13pt",
@@ -44,6 +63,21 @@ STENCIL_BENCHES = ["jacobi", "gaussblur", "laplacian", "wave13pt",
                    "lapgsrb", "uxx1", "tricubic", "sincos", "vecadd"]
 REPLACES = "src/repro/kernels/stencil/stencil.py:141"
 SOURCE = "src/repro_torch/kernels/stencil/csrc/stencil_common.cuh"
+CONV_REPLACES = "src/repro/kernels/conv1d/conv1d.py:31"
+CONV_SOURCE = "src/repro_torch/kernels/conv1d/csrc/conv1d_common.cuh"
+SSD_REPLACES = "src/repro/kernels/ssd/ssd.py:30"
+SSD_SOURCE = "src/repro_torch/kernels/ssd/csrc/ssd.cu"
+ARCH = "mamba2-1.3b"
+SERVE = dict(batch=4, prompt_len=1024, gen=32)      # 4 chunks of 256 per prompt
+CONV_TOL = {"float32": 1e-5, "bfloat16": 5e-2}      # the reference kernel tests'
+SSD_TOL = {"float32": 1e-4, "bfloat16": 8e-2}       # the reference kernel tests'
+# f32 continuity at full width: prefill 512 vs prefill 256 + 256 decode
+# steps, 48 layers.  Both sides are exact float32 algorithms that sum in
+# other orders (a chunked scan against a recurrence, batched against
+# single-row matmuls); rounding of ~1e-7 per operation grows over 256
+# steps and 48 layers to well under 1e-3 on logits of magnitude ~1, while
+# a wrong carried state or conv window moves them by O(0.1).
+CONTINUITY_TOL = 1e-3
 
 
 def sh(*cmd: str) -> str:
@@ -56,9 +90,11 @@ def card_line() -> str:
               "--format=csv,noheader").splitlines()[0]
 
 
-def event_times(fn, n: int, warmup: int = 2):
+def event_times(fn, n: int, warmup: int = 2, flush=None):
     """Per-call device milliseconds of ``fn``: an event pair around each
-    call, the calls queued back to back, one synchronise at the end."""
+    call, the calls queued back to back, one synchronise at the end.
+    ``flush``, a tensor larger than the L2 cache, is overwritten before
+    each call (outside the events), so every call starts from a cold L2."""
     import torch
 
     for _ in range(warmup):
@@ -66,6 +102,8 @@ def event_times(fn, n: int, warmup: int = 2):
     torch.cuda.synchronize()
     pairs = []
     for _ in range(n):
+        if flush is not None:
+            flush.zero_()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -120,6 +158,374 @@ def sass_counts(so_path: str) -> dict:
     return counts
 
 
+def sass_instances(counts: dict, symbol: str) -> dict:
+    """SASS counts of every compiled template instance of ``symbol``,
+    keyed by its (dtype, vector width) read from the mangled name."""
+    out = {}
+    for fn, c in counts.items():
+        if symbol in fn:
+            m = re.search(r"I(f|13__nv_bfloat16)(?:Li(\d+)E)?E", fn)
+            key = (({"f": "f32", "13__nv_bfloat16": "bf16"}[m.group(1)]
+                    + (f"x{m.group(2)}" if m.group(2) else "")) if m else fn)
+            out[key] = c
+    return out
+
+
+def cold_ms(fns: dict, n: int) -> dict:
+    """Median cold-L2 milliseconds of each function, timed in turns
+    (a, b, ..., b, a) so that drift in clocks or power hits every one.
+    Overwriting a buffer larger than L2 before each call also keeps the
+    card busy while the host enqueues the call: back to back, the event
+    pair around a 50 us kernel measured the host's launch latency."""
+    import torch
+
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    order = list(fns) + list(reversed(fns))
+    samples = {k: [] for k in fns}
+    for k in order:
+        samples[k] += event_times(fns[k], n=max(1, n // 2), flush=flush)
+    return {k: statistics.median(v) for k, v in samples.items()}
+
+
+def randn(shape, dtype, rng, device="cuda"):
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+        device, dtype)
+
+
+def ssd_inputs(B, L, H, P, N, dtype, rng):
+    import numpy as np
+    import torch
+
+    xh = randn((B, L, H, P), dtype, rng)
+    dt = torch.from_numpy(rng.uniform(0.01, 0.2, (B, L, H)).astype(np.float32)).cuda()
+    A = -torch.from_numpy(rng.uniform(0.5, 2.0, (H,)).astype(np.float32)).cuda()
+    return xh, dt, A, randn((B, L, 1, N), dtype, rng), randn((B, L, 1, N), dtype, rng)
+
+
+def serving_parity(conv, ssd_kernel, report) -> None:
+    """Phase 3b: conv1d and SSD against their plain versions at ragged
+    shapes (neither L nor C a multiple of the CTA tile; chunks that are
+    not multiples of the 64-row score tile)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import conv1d as tconv
+    from repro_torch.kernels import ssd as tssd
+
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    rng = np.random.default_rng(SEED)
+    report["conv1d_parity"], report["ssd_parity"] = [], []
+    for B, L, C, W in [(4, 1000, 4352, 4), (3, 37, 77, 4), (1, 129, 200, 3),
+                       (2, 333, 4350, 4)]:
+        for dname, dtype in dtypes.items():
+            x, w, b = (randn((B, L, C), dtype, rng), randn((W, C), dtype, rng),
+                       randn((C,), dtype, rng))
+            want = tconv.ref.causal_conv1d(x, w, b)
+            outs = [conv[(m, W)](x, w, b) for m in tconv.MODES]
+            torch.cuda.synchronize()
+            errs = []
+            for out in outs:
+                torch.testing.assert_close(out.float(), want.float(),
+                                           rtol=CONV_TOL[dname], atol=CONV_TOL[dname])
+                errs.append(float((out.float() - want.float()).abs().max()))
+            if not torch.equal(outs[0], outs[1]):
+                raise RuntimeError(f"conv1d {(B, L, C, W)} {dname}: modes differ")
+            report["conv1d_parity"].append({"shape": (B, L, C, W), "dtype": dname,
+                                            "max_abs_err": errs})
+            print(f"[parity] conv1d {(B, L, C, W)} {dname:<8} max|err| naive "
+                  f"{errs[0]:.2e} shuffle {errs[1]:.2e}, modes bitwise equal")
+    for B, L, H, P, N, Q in [(2, 64, 4, 16, 16, 16), (1, 128, 2, 32, 64, 32),
+                             (2, 96, 3, 8, 16, 32), (1, 64, 2, 16, 16, 64),
+                             (2, 768, 5, 64, 128, 256), (1, 384, 3, 12, 20, 96)]:
+        for dname, dtype in dtypes.items():
+            args = ssd_inputs(B, L, H, P, N, dtype, rng)
+            y, st = ssd_kernel(*args, Q)
+            want_y, want_st = tssd.ref.ssd_chunked(*args, Q)
+            torch.cuda.synchronize()
+            tol = SSD_TOL[dname]
+            torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
+            torch.testing.assert_close(st, want_st, rtol=tol, atol=tol)
+            ey = float((y.float() - want_y.float()).abs().max())
+            es = float((st - want_st).abs().max())
+            report["ssd_parity"].append({"shape": (B, L, H, P, N, Q), "dtype": dname,
+                                         "y_err": ey, "state_err": es})
+            print(f"[parity] ssd {(B, L, H, P, N, Q)} {dname:<8} max|err| y "
+                  f"{ey:.2e} state {es:.2e}")
+    args = ssd_inputs(1, 64, 2, 8, 16, torch.float32, rng)
+    (one, s1), (many, s8) = ssd_kernel(*args, 64), ssd_kernel(*args, 8)
+    torch.testing.assert_close(one, many, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(s1, s8, rtol=2e-4, atol=2e-4)
+    print(f"[parity] ssd chunk 64 vs chunk 8: max|diff| y "
+          f"{float((one - many).abs().max()):.2e} state {float((s1 - s8).abs().max()):.2e}")
+
+
+def reduced_card_vs_cpu(report) -> None:
+    """The reduced model on the card (both kernels) against the plain path
+    on the CPU with the same weights: logits and greedy tokens."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build_model
+    from repro_torch.serve import generate
+
+    rcfg = reduced(get_config(ARCH))
+    cpu = build_model(rcfg, device="cpu", generator=torch.Generator().manual_seed(SEED))
+    gpu = build_model(rcfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(0, rcfg.vocab, (2, 48)))
+    got, _ = gpu.prefill({"tokens": toks.cuda()})
+    ref, _ = cpu.prefill({"tokens": toks})
+    err = float((got.cpu() - ref).abs().max())
+    torch.testing.assert_close(got.cpu(), ref, rtol=1e-4, atol=1e-4)
+    if not torch.equal(generate(gpu, {"tokens": toks.cuda()}, 8).cpu(),
+                       generate(cpu, {"tokens": toks}, 8)):
+        raise RuntimeError("reduced model: greedy tokens differ card vs CPU")
+    report["reduced_card_vs_cpu_err"] = err
+    print(f"[serve] reduced {ARCH} on the card vs plain on the CPU: max|err| "
+          f"logits {err:.2e}, greedy tokens equal")
+
+
+def serve_run(report):
+    """mamba2-1.3b at full width through ``launch.serve``, launch counts
+    read around the run; returns the launch counts and layer 0's conv1d
+    and SSD inputs, captured on that run."""
+    import numpy as np
+    import torch
+
+    import repro_torch.models.mamba2 as m2
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import conv1d as tconv
+    from repro_torch.kernels import ssd as tssd
+    from repro_torch.kernels import stencil as tstencil
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+
+    cfg = get_config(ARCH)
+    argv = ["--arch", ARCH, "--device", "cuda", "--batch", str(SERVE["batch"]),
+            "--prompt-len", str(SERVE["prompt_len"]), "--gen", str(SERVE["gen"]),
+            "--seed", str(SEED)]
+    captured = {}
+    real_conv, real_ssd = m2.causal_conv1d, m2.ssd
+
+    def capture_conv(x, w, b, mode="shuffle", activation=True):
+        captured.setdefault("conv", (x, w, b))
+        return real_conv(x, w, b, mode=mode, activation=activation)
+
+    def capture_ssd(xh, dt, A, Bm, Cm, chunk):
+        captured.setdefault("ssd", (xh, dt, A, Bm, Cm, chunk))
+        return real_ssd(xh, dt, A, Bm, Cm, chunk)
+
+    # warm-up: one full-width prefill outside the counted run (the first
+    # use of each cuBLAS kernel loads its module), so the run is warm
+    model = build_model(cfg, device="cuda")
+    batch = {"tokens": torch.zeros((SERVE["batch"], SERVE["prompt_len"]),
+                                   dtype=torch.long, device="cuda")}
+    t0 = time.perf_counter()
+    model.prefill(batch)
+    torch.cuda.synchronize()
+    report["first_prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+    print(f"[serve] warm-up: the first full-width prefill after start-up took "
+          f"{report['first_prefill_ms']:.1f} ms")
+    del model, batch
+
+    torch.cuda.empty_cache()
+    m2.causal_conv1d, m2.ssd = capture_conv, capture_ssd
+    for mod in (tconv, tssd, tstencil):
+        mod.reset_launch_counts()
+    try:
+        out = serve.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        m2.causal_conv1d, m2.ssd = real_conv, real_ssd
+    counts = {**tconv.launch_counts(), **tssd.launch_counts(),
+              **tstencil.launch_counts()}
+    want = {"conv1d_shuffle_w4": cfg.n_layers, "ssd": cfg.n_layers}
+    if {k: counts.get(k) for k in want} != want or \
+            any(n for k, n in counts.items() if k not in want):
+        raise RuntimeError(f"serve: launches {counts}, expected {want}")
+    launches = {k: n for k, n in counts.items() if n}
+    tokens = out["tokens"]
+    if tokens.shape != (SERVE["batch"], SERVE["gen"]) or \
+            tokens.min() < 0 or tokens.max() >= cfg.vocab:
+        raise RuntimeError(f"serve: tokens {tokens.shape} out of range")
+    print(f"[serve] launches per prefill: conv1d {counts['conv1d_shuffle_w4']} "
+          f"ssd {counts['ssd']}")
+    model, batch = out.pop("model"), out.pop("batch")
+    logits, _ = model.prefill(batch)
+    if not bool(torch.isfinite(logits).all()) or \
+            logits.shape != (SERVE["batch"], cfg.vocab) or \
+            not np.array_equal(logits.argmax(-1).cpu().numpy(), tokens[:, 0]):
+        raise RuntimeError("serve: prefill logits non-finite, misshapen "
+                           "or not the first generated token")
+    del model, batch
+    report["serve"] = {k: v for k, v in out.items() if k != "tokens"}
+    report["serve"]["launches"] = launches
+    return launches, captured
+
+
+def layer0_conv1d(conv, args, launches, report, entries) -> None:
+    """Both conv1d modes on layer 0's input: parity with the plain version,
+    times beside the bound, the plain version and F.conv1d + SiLU.  Only
+    ``shuffle``, the mode the model runs, enters the kernels line."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import conv1d as tconv
+
+    x, w, b = args
+    B, L, C = x.shape
+    W = w.shape[0]
+    tol = CONV_TOL["bfloat16" if x.dtype == torch.bfloat16 else "float32"]
+    want = tconv.ref.causal_conv1d(x, w, b)
+    outs = {m: conv[(m, W)](x, w, b) for m in tconv.MODES}
+    torch.cuda.synchronize()
+    err = max(float((o.float() - want.float()).abs().max()) for o in outs.values())
+    for o in outs.values():
+        torch.testing.assert_close(o.float(), want.float(), rtol=tol, atol=tol)
+    if not torch.equal(outs["naive"], outs["shuffle"]):
+        raise RuntimeError("conv1d: modes differ on layer 0's input")
+    xt = x.transpose(1, 2)
+    wt = w.t().contiguous().unsqueeze(1)                          # (C, 1, W)
+
+    def library():
+        return F.silu(F.conv1d(xt, wt, b, padding=W - 1, groups=C)[..., :L])
+
+    torch.testing.assert_close(library().transpose(1, 2).float(), want.float(),
+                               rtol=tol, atol=tol)
+    item = x.element_size()
+    nbytes = 2 * x.numel() * item + (W + 1) * C * item
+    flops = x.numel() * (2 * W + 4)           # W mul-adds, SiLU (exp, add, div)
+    bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": flops / F32_FLOPS * 1e3}
+    bound_by = max(bound, key=bound.get)
+    times = cold_ms({**{m: (lambda k=conv[(m, W)]: k(x, w, b)) for m in tconv.MODES},
+                     "plain": lambda: tconv.ref.causal_conv1d(x, w, b), "library": library}, 40)
+    plain_ms, library_ms = times["plain"], times["library"]
+    rec = {"shape": (B, L, C, W), "dtype": str(x.dtype), "bytes": nbytes,
+           "bound_ms": bound[bound_by], "bound_by": bound_by, "plain_ms": plain_ms,
+           "library_ms": library_ms, "max_abs_err": err, "ms": {}}
+    for m in tconv.MODES:
+        ms = times[m]
+        rec["ms"][m] = ms
+        print(f"[serve-kernel] conv1d {m:<7} {(B, L, C, W)} {x.dtype} {ms:.4f} ms, "
+              f"bound {bound[bound_by]:.4f} ms ({bound_by}), "
+              f"{nbytes / ms / 1e6:.0f} GB/s")
+    print(f"[serve-kernel] conv1d plain {plain_ms:.4f} ms, F.conv1d+silu "
+          f"{library_ms:.4f} ms, max|err| {err:.2e}")
+    entries.append({"name": "conv1d_shuffle", "route": "cuda", "source": CONV_SOURCE,
+                    "replaces": CONV_REPLACES, "launches": launches["conv1d_shuffle_w4"],
+                    "max_abs_err": err, "ms": times["shuffle"], "plain_ms": plain_ms,
+                    "bound_ms": bound[bound_by], "bound_by": bound_by,
+                    "library_ms": library_ms})
+    report["conv1d_layer0"] = rec
+
+
+def layer0_ssd(ssd_kernel, args, launches, report, entries) -> None:
+    """The SSD kernel on layer 0's inputs: parity with the plain version
+    (y and final state), time beside the bound and the plain version."""
+    import torch
+
+    from repro_torch.kernels import ssd as tssd
+
+    xh, dt, A, Bm, Cm, Q = args
+    Bsz, L, H, P = xh.shape
+    N = Bm.shape[3]
+    y, st = ssd_kernel(xh, dt, A, Bm, Cm, Q)
+    want_y, want_st = tssd.ref.ssd_chunked(xh, dt, A, Bm, Cm, Q)
+    torch.cuda.synchronize()
+    tol = SSD_TOL["bfloat16" if xh.dtype == torch.bfloat16 else "float32"]
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(st, want_st, rtol=tol, atol=tol)
+    ey = float((y.float() - want_y.float()).abs().max())
+    es = float((st - want_st).abs().max())
+    item = xh.element_size()
+    nbytes = (2 * xh.numel() * item + dt.numel() * 4 + A.numel() * 4
+              + (Bm.numel() + Cm.numel()) * item + Bsz * H * N * P * 4)
+    # what the function needs per chunk: causal C.B^T once per (b, chunk)
+    # (G = 1), and per head causal scores @ x, C @ state, the state update
+    chunks = Bsz * (L // Q)
+    flops = chunks * (Q * (Q + 1) * N + H * (Q * (Q + 1) * P + 4 * Q * N * P))
+    # what the kernel executes: C.B^T and scores @ x on every 64 x 64 tile
+    # pair on or below the diagonal, per head (Q a multiple of 64)
+    pairs = (Q // 64) * (Q // 64 + 1) // 2
+    kernel_flops = chunks * H * (pairs * 2 * 64 * 64 * (N + P) + 4 * Q * N * P)
+    # the Pallas kernel's: full Q x Q tiles, C.B^T per head
+    pallas_flops = chunks * H * (2 * Q * Q * (N + P) + 4 * Q * N * P)
+    peak = BF16_FLOPS if xh.dtype == torch.bfloat16 else F32_FLOPS
+    bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": flops / peak * 1e3}
+    bound_by = max(bound, key=bound.get)
+    times = cold_ms({"kernel": lambda: ssd_kernel(xh, dt, A, Bm, Cm, Q),
+                     "plain": lambda: tssd.ref.ssd_chunked(xh, dt, A, Bm, Cm, Q)}, 10)
+    ms, plain_ms = times["kernel"], times["plain"]
+    report["ssd_layer0"] = {
+        "shape": (Bsz, L, H, P, N, Q), "dtype": str(xh.dtype), "bytes": nbytes,
+        "flops": flops, "kernel_flops": kernel_flops, "pallas_flops": pallas_flops,
+        "bound_ms": bound[bound_by], "bound_by": bound_by,
+        "f32_core_ms": kernel_flops / F32_FLOPS * 1e3, "ms": ms, "plain_ms": plain_ms,
+        "y_err": ey, "state_err": es}
+    entries.append({"name": "ssd", "route": "cuda", "source": SSD_SOURCE,
+                    "replaces": SSD_REPLACES, "launches": launches["ssd"],
+                    "max_abs_err": max(ey, es), "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound[bound_by], "bound_by": bound_by,
+                    "library_ms": None})
+    print(f"[serve-kernel] ssd {(Bsz, L, H, P, N, Q)} {xh.dtype} {ms:.4f} ms, bound "
+          f"{bound[bound_by]:.4f} ms ({bound_by}; needs {flops / 1e9:.2f} GFLOP, "
+          f"{nbytes / 1e6:.1f} MB); executes {kernel_flops / 1e9:.2f} GFLOP "
+          f"(Pallas {pallas_flops / 1e9:.2f}) at {kernel_flops / ms / 1e9:.1f} TFLOP/s, "
+          f"f32 cores {kernel_flops / F32_FLOPS * 1e3:.3f} ms; plain {plain_ms:.3f} ms; "
+          f"max|err| y {ey:.2e} state {es:.2e}")
+
+
+def continuity(report) -> None:
+    """float32 at full width: the last logits of a 512-token prefill equal
+    those of a 256-token prefill followed by 256 decode steps, which holds
+    the SSD kernel's final state and the conv state against plain decode."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.models import build_model
+
+    cfg = get_config(ARCH).replace(dtype="float32")
+    model = build_model(cfg, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(SEED + 1))
+    toks = torch.from_numpy(TokenPipeline(DataConfig(cfg.vocab, 512, 2, seed=SEED + 1))
+                            .batch_at(0)["tokens"]).long().cuda()
+    t0 = time.perf_counter()
+    full, _ = model.prefill({"tokens": toks})
+    _, cache = model.prefill({"tokens": toks[:, :256]})
+    for t in range(256, 512):
+        logits, cache = model.decode_step(toks[:, t], cache)
+    torch.cuda.synchronize()
+    err = float((logits - full).abs().max())
+    report["continuity"] = {"max_abs_err": err, "tol": CONTINUITY_TOL,
+                            "logit_absmax": float(full.abs().max()),
+                            "seconds": time.perf_counter() - t0}
+    print(f"[continuity] f32 {ARCH}: prefill 512 vs prefill 256 + 256 decode steps, "
+          f"max|err| logits {err:.2e} (|logits| <= {float(full.abs().max()):.2f}, "
+          f"tolerance {CONTINUITY_TOL})")
+    torch.testing.assert_close(logits, full, rtol=CONTINUITY_TOL, atol=CONTINUITY_TOL)
+
+
+def serving_path(conv, ssd_kernel, report, entries) -> None:
+    """Phase 5.  The small-input check runs first and also warms the card
+    (cuBLAS, the kernels' modules) before the timed full-width runs."""
+    import torch
+
+    reduced_card_vs_cpu(report)
+    launches, captured = serve_run(report)
+    layer0_conv1d(conv, captured.pop("conv"), launches, report, entries)
+    layer0_ssd(ssd_kernel, captured.pop("ssd"), launches, report, entries)
+    torch.cuda.empty_cache()
+    continuity(report)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -133,6 +539,8 @@ def main() -> int:
     from repro_torch.build import nvcc_path
     from repro_torch.core.frontend.cuda_lower import synthesize_cuda
     from repro_torch.core.frontend.kernelgen import get_bench
+    from repro_torch.kernels import conv1d as tconv
+    from repro_torch.kernels import ssd as tssd
     from repro_torch.kernels.stencil import (
         MODES, build_kernels, launch_counts, reference,
         reset_launch_counts, stencil_apply, traffic_report,
@@ -153,12 +561,18 @@ def main() -> int:
     if cap != (9, 0):
         raise RuntimeError(f"the kernels are built for sm_90a; device is sm_{cap[0]}{cap[1]}")
 
-    # -- 2. build -------------------------------------------------------------
-    benches = {n: get_bench(n) for n in STENCIL_BENCHES}
-    items = [(b.program, m, b.max_delta) for b in benches.values() for m in MODES]
+    # -- 2. build: one nvcc per source, all started together -----------------
+    conv_items = [(m, W) for W in (4, 3) for m in tconv.MODES]
     t0 = time.perf_counter()
-    kernels = dict(zip([(n, m) for n in benches for m in MODES],
-                       build_kernels(items)))
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        conv_job = pool.submit(tconv.build_kernels, conv_items)
+        ssd_job = pool.submit(tssd.build_kernel)
+        benches = {n: get_bench(n) for n in STENCIL_BENCHES}
+        items = [(b.program, m, b.max_delta) for b in benches.values() for m in MODES]
+        kernels = dict(zip([(n, m) for n in benches for m in MODES],
+                           build_kernels(items)))
+        conv = dict(zip(conv_items, conv_job.result()))
+        ssd_kernel = ssd_job.result()
     build_s = time.perf_counter() - t0
     lib = next(iter(kernels.values())).library
     print(f"[build] {len(kernels)} kernels, one nvcc call: {lib.seconds:.1f} s "
@@ -176,6 +590,28 @@ def main() -> int:
             raise RuntimeError(f"{name}: naive kernel contains SHFL")
         if n_pairs and sass[kernels[(name, "paper")].symbol]["shfl"] == 0:
             raise RuntimeError(f"{name}: {n_pairs} detected pairs but no SHFL")
+    conv_lib = conv[conv_items[0]].library
+    print(f"[build] conv1d: {len(conv_items)} kernels x (f32, bf16) vector widths, "
+          f"one nvcc call: {conv_lib.seconds:.1f} s; ssd: one nvcc call: "
+          f"{ssd_kernel.library.seconds:.1f} s; all three builds together "
+          f"{build_s:.1f} s")
+    conv_sass = sass_counts(str(conv_lib.path))
+    for key, k in conv.items():
+        inst = sass_instances(conv_sass, k.symbol)
+        if len(inst) != 7:
+            raise RuntimeError(f"{k.symbol}: {len(inst)} template instances in the SASS")
+        shuffles = {i: c["shfl"] for i, c in inst.items()}
+        if (k.spec.mode == "naive") == any(shuffles.values()) or \
+                (k.spec.mode == "shuffle" and not all(shuffles.values())):
+            raise RuntimeError(f"{k.symbol}: SHFL per instance {shuffles}")
+        for i in ("bf16x8", "f32x4"):
+            print(f"[sass] {k.symbol:<18} {i:<7} SHFL {inst[i]['shfl']:>3} "
+                  f"LDG {inst[i]['ldg']:>3}")
+        report["sass"][k.symbol] = inst
+    ssd_sass = sass_instances(sass_counts(str(ssd_kernel.library.path)), "ssd_kernel")
+    for i, c in ssd_sass.items():
+        print(f"[sass] ssd_kernel         {i:<7} SHFL {c['shfl']:>3} LDG {c['ldg']:>3}")
+    report["sass"]["ssd_kernel"] = ssd_sass
 
     # -- 3. parity on the card at a ragged medium shape ------------------------
     for i, (name, b) in enumerate(benches.items()):
@@ -208,6 +644,8 @@ def main() -> int:
               + " bitwise-equal modes")
         del xs, want, outs
 
+    serving_parity(conv, ssd_kernel, report)
+
     # -- 4. the main path at the paper's sizes ------------------------------
     entries = []
     for name, shape in PAPER.items():
@@ -233,7 +671,7 @@ def main() -> int:
         if not all(torch.equal(outs["naive"], o) for o in outs.values()):
             raise RuntimeError(f"{name}: modes are not bitwise equal at {shape}")
         keep = outs["naive"]
-        del outs
+        del outs, o
         torch.cuda.reset_peak_memory_stats()
         plain_t = event_times(lambda: reference(prog, xs, sc), n=3, warmup=1)
         want = reference(prog, xs, sc)
@@ -265,6 +703,7 @@ def main() -> int:
             x4 = xs["w0"][None, None]
             library_ms = statistics.median(event_times(lambda: F.conv2d(x4, w), n=10))
             torch.testing.assert_close(F.conv2d(x4, w)[0, 0], keep, **TOL)
+            del x4
         del keep
 
         rec = {"shape": shape, "compulsory_bytes": bytes_, "traffic": traffic,
@@ -293,7 +732,11 @@ def main() -> int:
         report["paper"][name] = rec
         del xs
 
-    # -- 5. records ------------------------------------------------------------
+    # -- 5. the serving path: mamba2-1.3b at full width ---------------------
+    torch.cuda.empty_cache()
+    serving_path(conv, ssd_kernel, report, entries)
+
+    # -- 6. records ------------------------------------------------------------
     report["card"] = card
     report["seconds"] = time.perf_counter() - t_start
     os.makedirs(os.path.dirname(REPORT), exist_ok=True)

@@ -1,0 +1,12 @@
+from .base import (  # noqa: F401
+    ModelConfig,
+    all_configs,
+    get_config,
+    reduced,
+    register,
+)
+
+# side-effect registration of every architecture whose path is ported
+from . import mamba2_1_3b  # noqa: F401
+
+ARCHS = sorted(all_configs())

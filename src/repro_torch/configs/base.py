@@ -1,0 +1,120 @@
+"""Model/config registry (mirrors ``src/repro/configs/base.py``).
+
+Each architecture file registers one :class:`ModelConfig` with the exact
+published hyperparameters; ``reduced()`` derives the small same-family
+config used by CPU tests.  Only the architectures whose path the port
+runs are registered (``configs/__init__.py``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                    # dense | moe | vlm | ssm | hybrid | audio
+    n_layers: int
+    d_model: int
+    vocab: int
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    d_ff: int = 0
+    norm: str = "rmsnorm"          # rmsnorm | layernorm | nonparametric
+    mlp: str = "swiglu"            # swiglu | gelu
+    rope_theta: float = 1e4
+    tie_embeddings: bool = True
+    # --- MoE ---
+    n_experts: int = 0
+    moe_top_k: int = 0
+    # --- SSM / hybrid ---
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    conv_width: int = 4
+    ssm_chunk: int = 256
+    attn_every: int = 6            # hybrid: shared attn block per N ssm blocks
+    # --- VLM ---
+    cross_every: int = 0           # a cross-attn layer every N layers
+    n_media_tokens: int = 1600     # stub vision tokens (frontend is a stub)
+    # --- audio enc-dec ---
+    n_encoder_layers: int = 0
+    n_frames: int = 1024           # stub speech-frame embeddings
+    # --- compute policy ---
+    dtype: str = "bfloat16"        # params/activations
+    attn_impl: str = "blockwise"
+    q_block: int = 512
+    kv_block: int = 1024
+    moe_impl: str = "sharded"      # sharded | dense (smoke/reference)
+    moe_schedule: str = "2d"       # 2d | ep_tp | auto
+    ssm_mm_dtype: str = "float32"  # the reference's SSD matmul dtype; the
+                                   # port's SSD multiplies in float32 always
+    norm_impl: str = "lean"        # lean | f32 stats
+    pad_vocab_multiple: int = 128  # pad embedding rows to a lane multiple
+    remat: str = "block"           # none | block  (activation checkpointing)
+    scan_layers: bool = True
+    source: str = ""
+    notes: str = ""
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads if self.n_heads else 0
+
+    @property
+    def padded_vocab(self) -> int:
+        m = max(self.pad_vocab_multiple, 1)
+        return -(-self.vocab // m) * m
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+_REGISTRY: Dict[str, ModelConfig] = {}
+
+
+def register(cfg: ModelConfig) -> ModelConfig:
+    _REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+def get_config(name: str) -> ModelConfig:
+    from repro_torch import configs as _c  # noqa: F401  (registration)
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
+    return _REGISTRY[name]
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    from repro_torch import configs as _c  # noqa: F401
+    return dict(_REGISTRY)
+
+
+def reduced(cfg: ModelConfig) -> ModelConfig:
+    """Small same-family config for CPU tests."""
+    kw = dict(
+        n_layers=min(cfg.n_layers, 2),
+        d_model=64,
+        vocab=256,
+        dtype="float32",
+        ssm_chunk=16,
+        q_block=16,
+        kv_block=16,
+        n_media_tokens=8,
+        n_frames=8,
+        moe_impl="dense",
+        remat="none",
+    )
+    if cfg.n_heads:
+        kw.update(n_heads=4, n_kv_heads=max(1, 4 * cfg.n_kv_heads // cfg.n_heads),
+                  d_ff=128)
+    if cfg.n_experts:
+        kw.update(n_experts=4, moe_top_k=min(2, cfg.moe_top_k))
+    if cfg.ssm_state:
+        kw.update(ssm_state=16, ssm_head_dim=16, attn_every=2)
+    if cfg.cross_every:
+        kw.update(cross_every=2, n_layers=4)
+    if cfg.n_encoder_layers:
+        kw.update(n_encoder_layers=2)
+    return cfg.replace(**kw)

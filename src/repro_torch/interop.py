@@ -4,13 +4,15 @@
 with ``repro.core.frontend.stencil`` as this package's ``Program``, by
 walking its dataclass fields and class names, so nothing of ``repro`` is
 imported.  :func:`arrays_from_numpy` keeps the reference's layout, with
-``i`` as the last axis.
+``i`` as the last axis.  :func:`ssm_params_from_reference` turns the
+reference's initialized ``SSMModel`` parameters into this package's
+``state_dict``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -49,3 +51,28 @@ def arrays_from_numpy(arrays: Dict[str, np.ndarray],
     """float32 tensors on ``device``, same shapes and axis order."""
     return {name: torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(device)
             for name, x in arrays.items()}
+
+
+def _tensor(x) -> torch.Tensor:
+    """A numpy (or array-like) leaf as a tensor of the same dtype;
+    bfloat16, which numpy lacks, goes through float32 exactly."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def ssm_params_from_reference(cfg, tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of ``repro_torch.models.SSMModel(cfg)`` holding
+    the reference's unboxed ``SSMModel.init`` parameters (numpy leaves;
+    block leaves stacked on a leading layer axis)."""
+    sd = {"embed.table": _tensor(tree["embed"]["table"])}
+    for name, leaf in tree["ln_f"].items():
+        sd[f"ln_f.{name}"] = _tensor(leaf)
+    blocks = tree["blocks"]
+    for i in range(cfg.n_layers):
+        for name, leaf in blocks["ln"].items():
+            sd[f"blocks.{i}.ln.{name}"] = _tensor(np.asarray(leaf)[i])
+        for name, leaf in blocks["mamba"].items():
+            sd[f"blocks.{i}.mamba.{name}"] = _tensor(np.asarray(leaf)[i])
+    return sd

@@ -1,0 +1,108 @@
+"""Shared model components: norms and initializers (mirrors
+``src/repro/models/common.py``).
+
+The reference annotates every parameter with logical axis names for its
+sharding layer; one card shards nothing, so parameters here are plain
+tensors.  Initializers draw from an explicit ``torch.Generator`` on the
+parameters' device.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional, Sequence
+
+import torch
+
+Params = Dict[str, torch.Tensor]
+
+
+# ---------------------------------------------------------------------------
+# initializers
+# ---------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, shape: Sequence[int], in_axis: int = 0,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    std = shape[in_axis] ** -0.5
+    return (torch.randn(tuple(shape), generator=gen, device=gen.device)
+            * std).to(dtype)
+
+
+def embed_init(gen: torch.Generator, shape: Sequence[int],
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return (torch.randn(tuple(shape), generator=gen, device=gen.device)
+            * 0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, scale: Optional[torch.Tensor], eps: float = 1e-6,
+            impl: str = "lean") -> torch.Tensor:
+    """RMSNorm.  ``impl="lean"`` computes float32 statistics only and keeps
+    every full-width tensor in the input dtype; ``impl="f32"`` upcasts."""
+    if impl == "f32":
+        dtype = x.dtype
+        xf = x.float()
+        var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+        xf = xf * torch.rsqrt(var + eps)
+        if scale is not None:
+            xf = xf * scale.float()
+        return xf.to(dtype)
+    var = torch.mean(torch.square(x.float()), dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    out = x * inv
+    if scale is not None:
+        out = out * scale.to(x.dtype)
+    return out
+
+
+def layernorm(x: torch.Tensor, scale: Optional[torch.Tensor],
+              bias: Optional[torch.Tensor], eps: float = 1e-5,
+              impl: str = "lean") -> torch.Tensor:
+    """LayerNorm (see :func:`rmsnorm` for the lean/f32 distinction)."""
+    if impl == "f32":
+        dtype = x.dtype
+        xf = x.float()
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+        xf = (xf - mu) * torch.rsqrt(var + eps)
+        if scale is not None:
+            xf = xf * scale.float()
+        if bias is not None:
+            xf = xf + bias.float()
+        return xf.to(dtype)
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    out = (x - mu.to(x.dtype)) * inv
+    if scale is not None:
+        out = out * scale.to(x.dtype)
+    if bias is not None:
+        out = out + bias.to(x.dtype)
+    return out
+
+
+def init_norm(d: int, kind: str, dtype: torch.dtype = torch.float32,
+              device: str = "cpu") -> Params:
+    """kind: rmsnorm | layernorm | nonparametric (OLMo-1b)."""
+    if kind == "rmsnorm":
+        return {"scale": torch.ones(d, dtype=dtype, device=device)}
+    if kind == "layernorm":
+        return {"scale": torch.ones(d, dtype=dtype, device=device),
+                "bias": torch.zeros(d, dtype=dtype, device=device)}
+    if kind == "nonparametric":
+        return {}
+    raise ValueError(kind)
+
+
+def apply_norm(params: Mapping[str, torch.Tensor], x: torch.Tensor, kind: str,
+               impl: str = "lean") -> torch.Tensor:
+    if kind == "rmsnorm":
+        return rmsnorm(x, params["scale"], impl=impl)
+    if kind == "layernorm":
+        return layernorm(x, params["scale"], params["bias"], impl=impl)
+    if kind == "nonparametric":
+        return layernorm(x, None, None, impl=impl)
+    raise ValueError(kind)

@@ -1,6 +1,6 @@
-"""The CUDA stencil kernels on the card, against their plain PyTorch
-version.  Imports only torch and the port, so it runs where JAX is not
-installed:  PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""The CUDA kernels on the card (stencil, conv1d, SSD) and the Mamba-2
+serving path, against their plain PyTorch versions.  Imports only torch
+and the port, so it runs where JAX is not installed:  PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 Every test here skips without a CUDA device."""
 
 import numpy as np
@@ -8,8 +8,12 @@ import pytest
 
 torch = pytest.importorskip("torch")  # the port's tests need PyTorch
 
+from repro_torch.configs import get_config, reduced
 from repro_torch.core.frontend.kernelgen import get_bench
 from repro_torch.interop import arrays_from_numpy
+from repro_torch.kernels import conv1d as tconv
+from repro_torch.kernels import ssd as tssd
+from repro_torch.models import build_model
 from repro_torch.kernels.stencil import (
     MODES,
     build_kernels,
@@ -87,3 +91,151 @@ def test_wrapper_rejects_bad_inputs(cuda_device):
         kernel({"w0": xs["w0"].cpu()}, scalars)
     with pytest.raises(ValueError):
         kernel({"w0": xs["w0"][0]}, scalars)
+
+
+# ---------------------------------------------------------------------------
+# conv1d and SSD (the Mamba-2 serving path)
+# ---------------------------------------------------------------------------
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+CONV_TOL = {"float32": 1e-5, "bfloat16": 5e-2}     # the reference's
+SSD_TOL = {"float32": 1e-4, "bfloat16": 8e-2}      # the reference's
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    return "cuda"
+
+
+def _randn(shape, dtype, rng, scale=1.0):
+    return torch.from_numpy(
+        (rng.standard_normal(shape) * scale).astype(np.float32)).to("cuda", dtype)
+
+
+@pytest.mark.parametrize("shape", [(2, 1000, 4352, 4), (3, 37, 77, 4),
+                                   (1, 129, 200, 3), (4, 16, 6, 4), (1, 5, 24, 4)])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_conv1d_kernels_match_plain(card, shape, dtype):
+    """Both modes against the plain version at ragged L and C (and C that
+    forces narrower vectors); bitwise equal to each other, and to the
+    plain version without the SiLU."""
+    B, L, C, W = shape
+    rng = np.random.default_rng(sum(shape))
+    x = _randn((B, L, C), DTYPES[dtype], rng)
+    w = _randn((W, C), DTYPES[dtype], rng)
+    b = _randn((C,), DTYPES[dtype], rng)
+    kernels = tconv.build_kernels([(m, W) for m in tconv.MODES])
+    want = tconv.ref.causal_conv1d(x, w, b)
+    outs = []
+    for k in kernels:
+        before = k.launches
+        outs.append(k(x, w, b))
+        assert k.launches == before + 1
+    torch.cuda.synchronize()
+    tol = CONV_TOL[dtype]
+    for out in outs:
+        torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(outs[0], outs[1])
+    linear = [k(x, w, b, activation=False) for k in kernels]
+    plain = tconv.ref.causal_conv1d(x, w, b, activation=False)
+    assert torch.equal(linear[0], plain) and torch.equal(linear[1], plain)
+
+
+def test_conv1d_wrapper_rejects_bad_inputs(card):
+    (k,) = tconv.build_kernels([("shuffle", 4)])
+    rng = np.random.default_rng(0)
+    x = _randn((2, 16, 8), torch.float32, rng)
+    w = _randn((4, 8), torch.float32, rng)
+    b = _randn((8,), torch.float32, rng)
+    with pytest.raises(TypeError):
+        k(x.double(), w.double(), b.double())
+    with pytest.raises(TypeError):
+        k(x, w.bfloat16(), b)
+    with pytest.raises(ValueError):
+        k(x.transpose(1, 2), w, b)
+    with pytest.raises(ValueError):
+        k(x.cpu(), w, b)
+    with pytest.raises(ValueError):
+        k(x, w[:3], b)
+
+
+def _ssd_inputs(B, L, H, P, N, dtype, seed):
+    rng = np.random.default_rng(seed)
+    xh = _randn((B, L, H, P), dtype, rng)
+    dt = torch.from_numpy(rng.uniform(0.01, 0.2, (B, L, H)).astype(np.float32)).cuda()
+    A = -torch.from_numpy(rng.uniform(0.5, 2.0, (H,)).astype(np.float32)).cuda()
+    return xh, dt, A, _randn((B, L, 1, N), dtype, rng), _randn((B, L, 1, N), dtype, rng)
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 4, 16, 16, 16), (1, 128, 2, 32, 64, 32),
+                                   (2, 96, 3, 8, 16, 32), (1, 64, 2, 16, 16, 64),
+                                   (2, 512, 3, 64, 128, 256), (1, 384, 2, 12, 20, 96)])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_ssd_kernel_matches_plain(card, shape, dtype):
+    """y and the final state against the plain version, at the reference
+    test's shapes, the model's (P 64, N 128, chunk 256) and a ragged one."""
+    B, L, H, P, N, Q = shape
+    args = _ssd_inputs(B, L, H, P, N, DTYPES[dtype], sum(shape))
+    k = tssd.build_kernel()
+    before = k.launches
+    y, state = tssd.ssd(*args, chunk=Q)
+    torch.cuda.synchronize()
+    assert k.launches == before + 1
+    want_y, want_state = tssd.ref.ssd_chunked(*args, chunk=Q)
+    tol = SSD_TOL[dtype]
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(state, want_state, rtol=tol, atol=tol)
+
+
+def test_ssd_kernel_chunk_8_equals_64(card):
+    args = _ssd_inputs(1, 64, 2, 8, 16, torch.float32, 3)
+    one, s_one = tssd.ssd(*args, chunk=64)
+    many, s_many = tssd.ssd(*args, chunk=8)
+    torch.testing.assert_close(one, many, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(s_one, s_many, rtol=2e-4, atol=2e-4)
+
+
+def test_ssd_wrapper_rejects_bad_inputs(card):
+    xh, dt, A, Bm, Cm = _ssd_inputs(1, 32, 2, 8, 16, torch.float32, 4)
+    k = tssd.build_kernel()
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        k(xh, dt, A, Bm, Cm, 12)
+    with pytest.raises(ValueError):
+        k(xh, dt, A, Bm.expand(1, 32, 2, 16), Cm.expand(1, 32, 2, 16), 16)
+    with pytest.raises(TypeError):
+        k(xh, dt.bfloat16(), A, Bm, Cm, 16)
+    with pytest.raises(TypeError):
+        k(xh.bfloat16(), dt, A, Bm, Cm, 16)
+    with pytest.raises(ValueError):
+        k(xh[..., :6], dt, A, Bm, Cm, 16)
+    with pytest.raises(ValueError):
+        k(xh.cpu(), dt, A, Bm, Cm, 16)
+
+
+def test_mamba2_prefill_on_card_matches_plain(card):
+    """The reduced model's prefill and one decode step on the card (through
+    both kernels, one launch each per layer) against the same weights on
+    the CPU (plain versions)."""
+    cfg = reduced(get_config("mamba2-1.3b"))
+    cpu = build_model(cfg, device="cpu")
+    gpu = build_model(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 48)))
+    tconv.reset_launch_counts()
+    tssd.reset_launch_counts()
+    got, cache = gpu.prefill({"tokens": tokens.cuda()})
+    torch.cuda.synchronize()
+    assert tconv.launch_counts()["conv1d_shuffle_w4"] == cfg.n_layers
+    assert tssd.launch_counts()["ssd"] == cfg.n_layers
+    want, want_cache = cpu.prefill({"tokens": tokens})
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    for key in ("conv", "ssm"):
+        torch.testing.assert_close(cache[key].cpu(), want_cache[key],
+                                   rtol=1e-4, atol=1e-4)
+    nxt = want.argmax(-1)
+    got2, _ = gpu.decode_step(nxt.cuda(), cache)
+    want2, _ = cpu.decode_step(nxt, want_cache)
+    torch.testing.assert_close(got2.cpu(), want2, rtol=1e-4, atol=1e-4)

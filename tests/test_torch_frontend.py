@@ -141,10 +141,18 @@ def test_port_imports_neither_jax_nor_reference():
                      if m == "repro" or m.startswith("repro.")
                      or ((m == "jax" or m.startswith("jax.")) and sys.modules[m] is not None))
         assert not bad, bad
-        print(len(names))
+        print(" ".join(names))
     """)
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    names = set(out.stdout.split())
+    assert len(names) >= 20
+    for pkg in ("configs", "models", "data", "serve", "launch",
+                "kernels.conv1d", "kernels.ssd"):
+        assert f"repro_torch.{pkg}" in names, pkg
+    for mod in ("configs.mamba2_1_3b", "models.mamba2", "models.lm",
+                "data.pipeline", "serve.step", "launch.serve",
+                "kernels.conv1d.ops", "kernels.ssd.ops"):
+        assert f"repro_torch.{mod}" in names, mod
