@@ -6,14 +6,18 @@ Phases, each fatal on failure:
 1. toolchain: torch, CUDA, device capability, nvcc, card and power limit;
 2. build: every (KernelGen stencil bench, mode) kernel in one nvcc call,
    and, at the same time, the conv1d kernels (naive / shuffle, widths 3
-   and 4, float32 and bfloat16) and the SSD kernel, each source in an
+   and 4, float32 and bfloat16), the SSD kernel and the flash-attention
+   kernel (head dims 8-128, float32 and bfloat16), each source in an
    nvcc call of its own; then ``SHFL``/``LDG`` instructions counted per
    kernel in the built SASS;
 3. parity: per stencil bench, the shuffle plan (emulator detection vs
    schedule) and each mode's kernel against the plain PyTorch version at
    a ragged medium shape, the three modes bitwise equal; conv1d (both
    modes, bitwise equal) and SSD (y and final state, chunk 8 vs 64)
-   against their plain versions at ragged shapes;
+   against their plain versions at ragged shapes; flash attention
+   against its plain version at the reference test's five shapes, Sq >
+   a ragged Sk, GQA with Dh 128 and the serving shape, float32 and
+   bfloat16;
 4. the stencil main path at the paper's sizes (Jacobi 32768x32768,
    tricubic 512x1024x1024): DSL program -> PTX -> symbolic emulation ->
    shuffle detection -> ``stencil_apply`` in every mode, with launch
@@ -31,7 +35,15 @@ Phases, each fatal on failure:
    ``F.conv1d(groups=C)`` + SiLU; the reduced model on the card against
    the plain path on the CPU; and a float32 continuity check at full
    width (prefill 512 == prefill 256 + 256 decode steps);
-6. a ``kernels`` JSON line, and as the last line the device record.
+6. the hybrid serving path, the same way: zamba2-1.2b at its published
+   widths serves the same traffic (per prefill 6 flash-attention, 38
+   conv1d ``shuffle`` and 38 SSD launches); the inputs of the first
+   shared-attention call and of layer 0's conv1d and SSD are captured,
+   held against the plain versions and timed (flash attention beside
+   ``scaled_dot_product_attention``); the reduced 5-layer model (two
+   supercells and a trailing block) on the card against the CPU; f32
+   continuity at full width;
+7. a ``kernels`` JSON line, and as the last line the device record.
 
 Run from the repository root:  python3 chip_smoke.py
 Needs one CUDA device and nvcc for sm_90a; exits non-zero without them.
@@ -67,10 +79,19 @@ CONV_REPLACES = "src/repro/kernels/conv1d/conv1d.py:31"
 CONV_SOURCE = "src/repro_torch/kernels/conv1d/csrc/conv1d_common.cuh"
 SSD_REPLACES = "src/repro/kernels/ssd/ssd.py:30"
 SSD_SOURCE = "src/repro_torch/kernels/ssd/csrc/ssd.cu"
-ARCH = "mamba2-1.3b"
+FLASH_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:33"
+FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+MAMBA, HYBRID = "mamba2-1.3b", "zamba2-1.2b"
 SERVE = dict(batch=4, prompt_len=1024, gen=32)      # 4 chunks of 256 per prompt
 CONV_TOL = {"float32": 1e-5, "bfloat16": 5e-2}      # the reference kernel tests'
 SSD_TOL = {"float32": 1e-4, "bfloat16": 8e-2}       # the reference kernel tests'
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 6e-2}     # the reference kernel tests'
+# (B, Sq, Sk, H, KV, Dh, causal): tests/test_kernels.py's five shapes, Sq
+# above a ragged Sk, GQA with Dh 128, and the serving shape
+FLASH_SHAPES = [(2, 64, 64, 4, 2, 16, True), (1, 100, 100, 4, 4, 8, True),
+                (2, 64, 64, 8, 2, 16, False), (1, 33, 33, 2, 1, 32, True),
+                (2, 48, 96, 4, 1, 16, True), (1, 40, 20, 2, 1, 8, True),
+                (2, 200, 200, 8, 2, 128, True), (4, 1024, 1024, 32, 32, 64, True)]
 # f32 continuity at full width: prefill 512 vs prefill 256 + 256 decode
 # steps, 48 layers.  Both sides are exact float32 algorithms that sum in
 # other orders (a chunked scan against a recurrence, batched against
@@ -262,9 +283,36 @@ def serving_parity(conv, ssd_kernel, report) -> None:
           f"{float((one - many).abs().max()):.2e} state {float((s1 - s8).abs().max()):.2e}")
 
 
-def reduced_card_vs_cpu(report) -> None:
-    """The reduced model on the card (both kernels) against the plain path
-    on the CPU with the same weights: logits and greedy tokens."""
+def flash_parity(fa_kernel, report) -> None:
+    """Phase 3c: flash attention against its plain version."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import flash_attention as tfa
+
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    rng = np.random.default_rng(SEED)
+    report["flash_parity"] = []
+    for B, Sq, Sk, H, KV, Dh, causal in FLASH_SHAPES:
+        for dname, dtype in dtypes.items():
+            q = randn((B, Sq, H, Dh), dtype, rng)
+            k, v = randn((B, Sk, KV, Dh), dtype, rng), randn((B, Sk, KV, Dh), dtype, rng)
+            out = fa_kernel(q, k, v, causal)
+            want = tfa.ref.attention_ref(q, k, v, causal)
+            torch.cuda.synchronize()
+            tol = FLASH_TOL[dname]
+            torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+            err = float((out.float() - want.float()).abs().max())
+            shape = (B, Sq, Sk, H, KV, Dh, causal)
+            report["flash_parity"].append({"shape": shape, "dtype": dname,
+                                           "max_abs_err": err})
+            print(f"[parity] flash_attention {shape} {dname:<8} max|err| {err:.2e}")
+
+
+def reduced_card_vs_cpu(report, arch: str) -> None:
+    """The reduced model on the card (every kernel) against the plain path
+    on the CPU with the same weights: logits and greedy tokens.  The
+    hybrid keeps 5 layers: two supercells and a trailing block."""
     import numpy as np
     import torch
 
@@ -272,7 +320,9 @@ def reduced_card_vs_cpu(report) -> None:
     from repro_torch.models import build_model
     from repro_torch.serve import generate
 
-    rcfg = reduced(get_config(ARCH))
+    rcfg = reduced(get_config(arch))
+    if rcfg.family == "hybrid":
+        rcfg = rcfg.replace(n_layers=5)
     cpu = build_model(rcfg, device="cpu", generator=torch.Generator().manual_seed(SEED))
     gpu = build_model(rcfg, device="cuda")
     gpu.load_state_dict(cpu.state_dict())
@@ -283,41 +333,48 @@ def reduced_card_vs_cpu(report) -> None:
     torch.testing.assert_close(got.cpu(), ref, rtol=1e-4, atol=1e-4)
     if not torch.equal(generate(gpu, {"tokens": toks.cuda()}, 8).cpu(),
                        generate(cpu, {"tokens": toks}, 8)):
-        raise RuntimeError("reduced model: greedy tokens differ card vs CPU")
+        raise RuntimeError(f"reduced {arch}: greedy tokens differ card vs CPU")
     report["reduced_card_vs_cpu_err"] = err
-    print(f"[serve] reduced {ARCH} on the card vs plain on the CPU: max|err| "
-          f"logits {err:.2e}, greedy tokens equal")
+    print(f"[serve] reduced {arch} ({rcfg.n_layers} layers) on the card vs plain on "
+          f"the CPU: max|err| logits {err:.2e}, greedy tokens equal")
 
 
-def serve_run(report):
-    """mamba2-1.3b at full width through ``launch.serve``, launch counts
-    read around the run; returns the launch counts and layer 0's conv1d
-    and SSD inputs, captured on that run."""
+def serve_run(report, arch: str, want: dict):
+    """``arch`` at full width through ``launch.serve``, launch counts read
+    around the run and required to equal ``want``; returns the launch
+    counts and the inputs of the first conv1d, SSD and flash-attention
+    calls, captured on that run."""
     import numpy as np
     import torch
 
+    import repro_torch.models.attention as attn
     import repro_torch.models.mamba2 as m2
     from repro_torch.configs import get_config
     from repro_torch.kernels import conv1d as tconv
+    from repro_torch.kernels import flash_attention as tfa
     from repro_torch.kernels import ssd as tssd
     from repro_torch.kernels import stencil as tstencil
     from repro_torch.launch import serve
     from repro_torch.models import build_model
 
-    cfg = get_config(ARCH)
-    argv = ["--arch", ARCH, "--device", "cuda", "--batch", str(SERVE["batch"]),
+    cfg = get_config(arch)
+    argv = ["--arch", arch, "--device", "cuda", "--batch", str(SERVE["batch"]),
             "--prompt-len", str(SERVE["prompt_len"]), "--gen", str(SERVE["gen"]),
             "--seed", str(SEED)]
     captured = {}
-    real_conv, real_ssd = m2.causal_conv1d, m2.ssd
+    real = (m2.causal_conv1d, m2.ssd, attn.flash_attention)
 
     def capture_conv(x, w, b, mode="shuffle", activation=True):
         captured.setdefault("conv", (x, w, b))
-        return real_conv(x, w, b, mode=mode, activation=activation)
+        return real[0](x, w, b, mode=mode, activation=activation)
 
     def capture_ssd(xh, dt, A, Bm, Cm, chunk):
         captured.setdefault("ssd", (xh, dt, A, Bm, Cm, chunk))
-        return real_ssd(xh, dt, A, Bm, Cm, chunk)
+        return real[1](xh, dt, A, Bm, Cm, chunk)
+
+    def capture_flash(q, k, v, causal=True):
+        captured.setdefault("flash", (q, k, v, causal))
+        return real[2](q, k, v, causal=causal)
 
     # warm-up: one full-width prefill outside the counted run (the first
     # use of each cuBLAS kernel loads its module), so the run is warm
@@ -328,46 +385,45 @@ def serve_run(report):
     model.prefill(batch)
     torch.cuda.synchronize()
     report["first_prefill_ms"] = 1e3 * (time.perf_counter() - t0)
-    print(f"[serve] warm-up: the first full-width prefill after start-up took "
-          f"{report['first_prefill_ms']:.1f} ms")
+    print(f"[serve] {arch} warm-up: the first full-width prefill after start-up "
+          f"took {report['first_prefill_ms']:.1f} ms")
     del model, batch
 
     torch.cuda.empty_cache()
-    m2.causal_conv1d, m2.ssd = capture_conv, capture_ssd
-    for mod in (tconv, tssd, tstencil):
+    m2.causal_conv1d, m2.ssd, attn.flash_attention = capture_conv, capture_ssd, capture_flash
+    for mod in (tconv, tssd, tfa, tstencil):
         mod.reset_launch_counts()
     try:
         out = serve.main(argv)
         torch.cuda.synchronize()
     finally:
-        m2.causal_conv1d, m2.ssd = real_conv, real_ssd
+        m2.causal_conv1d, m2.ssd, attn.flash_attention = real
     counts = {**tconv.launch_counts(), **tssd.launch_counts(),
-              **tstencil.launch_counts()}
-    want = {"conv1d_shuffle_w4": cfg.n_layers, "ssd": cfg.n_layers}
+              **tfa.launch_counts(), **tstencil.launch_counts()}
     if {k: counts.get(k) for k in want} != want or \
             any(n for k, n in counts.items() if k not in want):
-        raise RuntimeError(f"serve: launches {counts}, expected {want}")
+        raise RuntimeError(f"serve {arch}: launches {counts}, expected {want}")
     launches = {k: n for k, n in counts.items() if n}
     tokens = out["tokens"]
     if tokens.shape != (SERVE["batch"], SERVE["gen"]) or \
             tokens.min() < 0 or tokens.max() >= cfg.vocab:
-        raise RuntimeError(f"serve: tokens {tokens.shape} out of range")
-    print(f"[serve] launches per prefill: conv1d {counts['conv1d_shuffle_w4']} "
-          f"ssd {counts['ssd']}")
+        raise RuntimeError(f"serve {arch}: tokens {tokens.shape} out of range")
+    print(f"[serve] {arch} launches per served run: "
+          + " ".join(f"{k} {n}" for k, n in launches.items()))
     model, batch = out.pop("model"), out.pop("batch")
     logits, _ = model.prefill(batch)
     if not bool(torch.isfinite(logits).all()) or \
             logits.shape != (SERVE["batch"], cfg.vocab) or \
             not np.array_equal(logits.argmax(-1).cpu().numpy(), tokens[:, 0]):
-        raise RuntimeError("serve: prefill logits non-finite, misshapen "
+        raise RuntimeError(f"serve {arch}: prefill logits non-finite, misshapen "
                            "or not the first generated token")
-    del model, batch
+    del model, batch, logits
     report["serve"] = {k: v for k, v in out.items() if k != "tokens"}
     report["serve"]["launches"] = launches
     return launches, captured
 
 
-def layer0_conv1d(conv, args, launches, report, entries) -> None:
+def layer0_conv1d(conv, args, launches, report, entries, name) -> None:
     """Both conv1d modes on layer 0's input: parity with the plain version,
     times beside the bound, the plain version and F.conv1d + SiLU.  Only
     ``shuffle``, the mode the model runs, enters the kernels line."""
@@ -416,7 +472,7 @@ def layer0_conv1d(conv, args, launches, report, entries) -> None:
               f"{nbytes / ms / 1e6:.0f} GB/s")
     print(f"[serve-kernel] conv1d plain {plain_ms:.4f} ms, F.conv1d+silu "
           f"{library_ms:.4f} ms, max|err| {err:.2e}")
-    entries.append({"name": "conv1d_shuffle", "route": "cuda", "source": CONV_SOURCE,
+    entries.append({"name": name, "route": "cuda", "source": CONV_SOURCE,
                     "replaces": CONV_REPLACES, "launches": launches["conv1d_shuffle_w4"],
                     "max_abs_err": err, "ms": times["shuffle"], "plain_ms": plain_ms,
                     "bound_ms": bound[bound_by], "bound_by": bound_by,
@@ -424,7 +480,7 @@ def layer0_conv1d(conv, args, launches, report, entries) -> None:
     report["conv1d_layer0"] = rec
 
 
-def layer0_ssd(ssd_kernel, args, launches, report, entries) -> None:
+def layer0_ssd(ssd_kernel, args, launches, report, entries, name) -> None:
     """The SSD kernel on layer 0's inputs: parity with the plain version
     (y and final state), time beside the bound and the plain version."""
     import torch
@@ -468,7 +524,7 @@ def layer0_ssd(ssd_kernel, args, launches, report, entries) -> None:
         "bound_ms": bound[bound_by], "bound_by": bound_by,
         "f32_core_ms": kernel_flops / F32_FLOPS * 1e3, "ms": ms, "plain_ms": plain_ms,
         "y_err": ey, "state_err": es}
-    entries.append({"name": "ssd", "route": "cuda", "source": SSD_SOURCE,
+    entries.append({"name": name, "route": "cuda", "source": SSD_SOURCE,
                     "replaces": SSD_REPLACES, "launches": launches["ssd"],
                     "max_abs_err": max(ey, es), "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound[bound_by], "bound_by": bound_by,
@@ -481,24 +537,85 @@ def layer0_ssd(ssd_kernel, args, launches, report, entries) -> None:
           f"max|err| y {ey:.2e} state {es:.2e}")
 
 
-def continuity(report) -> None:
+def layer0_flash(fa_kernel, args, launches, report, entries) -> None:
+    """The flash-attention kernel on the first shared-attention call's
+    inputs: parity with the plain version, time beside the bound, the
+    plain version and ``scaled_dot_product_attention`` on the same
+    tensors transposed to (B, H, S, Dh) outside the timed call."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as tfa
+
+    q, k, v, causal = args
+    B, Sq, H, Dh = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    tol = FLASH_TOL["bfloat16" if q.dtype == torch.bfloat16 else "float32"]
+    out = fa_kernel(q, k, v, causal)
+    want = tfa.ref.attention_ref(q, k, v, causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    err = float((out.float() - want.float()).abs().max())
+    G = H // KV
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+
+    torch.testing.assert_close(library().transpose(1, 2).float(), want.float(),
+                               rtol=tol, atol=tol)
+    item = q.element_size()
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * item
+    # the function's work: q.k and p.v (2 FLOP each per element of Dh) on
+    # every (query, key) pair the mask keeps
+    kept = (sum(min(i + 1, Sk) for i in range(Sq)) if causal else Sq * Sk)
+    flops = B * H * kept * 4 * Dh
+    peak = BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
+    bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": flops / peak * 1e3}
+    bound_by = max(bound, key=bound.get)
+    times = cold_ms({"kernel": lambda: fa_kernel(q, k, v, causal),
+                     "plain": lambda: tfa.ref.attention_ref(q, k, v, causal),
+                     "library": library}, 20)
+    ms, plain_ms, library_ms = times["kernel"], times["plain"], times["library"]
+    report["flash_layer0"] = {
+        "shape": (B, Sq, Sk, H, KV, Dh, causal), "dtype": str(q.dtype),
+        "bytes": nbytes, "flops": flops, "bound_ms": bound[bound_by],
+        "bound_by": bound_by, "f32_core_ms": flops / F32_FLOPS * 1e3, "ms": ms,
+        "plain_ms": plain_ms, "library_ms": library_ms, "max_abs_err": err}
+    entries.append({"name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
+                    "replaces": FLASH_REPLACES, "launches": launches["flash_attention"],
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound[bound_by], "bound_by": bound_by,
+                    "library_ms": library_ms})
+    print(f"[serve-kernel] flash_attention {(B, Sq, Sk, H, KV, Dh)} causal {causal} "
+          f"{q.dtype} {ms:.4f} ms, bound {bound[bound_by]:.4f} ms ({bound_by}; "
+          f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) at "
+          f"{flops / ms / 1e9:.1f} TFLOP/s; plain {plain_ms:.4f} ms; "
+          f"scaled_dot_product_attention {library_ms:.4f} ms; max|err| {err:.2e}")
+
+
+def continuity(report, arch: str) -> None:
     """float32 at full width: the last logits of a 512-token prefill equal
     those of a 256-token prefill followed by 256 decode steps, which holds
-    the SSD kernel's final state and the conv state against plain decode."""
+    the SSD kernel's final state, the conv state and (hybrid) the
+    attention k/v cache against plain decode."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, TokenPipeline
     from repro_torch.models import build_model
 
-    cfg = get_config(ARCH).replace(dtype="float32")
+    cfg = get_config(arch).replace(dtype="float32")
     model = build_model(cfg, device="cuda",
                         generator=torch.Generator(device="cuda").manual_seed(SEED + 1))
     toks = torch.from_numpy(TokenPipeline(DataConfig(cfg.vocab, 512, 2, seed=SEED + 1))
                             .batch_at(0)["tokens"]).long().cuda()
     t0 = time.perf_counter()
     full, _ = model.prefill({"tokens": toks})
-    _, cache = model.prefill({"tokens": toks[:, :256]})
+    _, cache = model.prefill({"tokens": toks[:, :256]}, max_len=512)
     for t in range(256, 512):
         logits, cache = model.decode_step(toks[:, t], cache)
     torch.cuda.synchronize()
@@ -506,23 +623,35 @@ def continuity(report) -> None:
     report["continuity"] = {"max_abs_err": err, "tol": CONTINUITY_TOL,
                             "logit_absmax": float(full.abs().max()),
                             "seconds": time.perf_counter() - t0}
-    print(f"[continuity] f32 {ARCH}: prefill 512 vs prefill 256 + 256 decode steps, "
+    print(f"[continuity] f32 {arch}: prefill 512 vs prefill 256 + 256 decode steps, "
           f"max|err| logits {err:.2e} (|logits| <= {float(full.abs().max()):.2f}, "
           f"tolerance {CONTINUITY_TOL})")
     torch.testing.assert_close(logits, full, rtol=CONTINUITY_TOL, atol=CONTINUITY_TOL)
 
 
-def serving_path(conv, ssd_kernel, report, entries) -> None:
-    """Phase 5.  The small-input check runs first and also warms the card
-    (cuBLAS, the kernels' modules) before the timed full-width runs."""
+def serving_path(arch, kernels, report, entries) -> None:
+    """Phases 5 and 6.  The small-input check runs first and also warms the
+    card (cuBLAS, the kernels' modules) before the timed full-width runs.
+    Entries of the hybrid's conv1d and SSD carry the arch in their name."""
     import torch
 
-    reduced_card_vs_cpu(report)
-    launches, captured = serve_run(report)
-    layer0_conv1d(conv, captured.pop("conv"), launches, report, entries)
-    layer0_ssd(ssd_kernel, captured.pop("ssd"), launches, report, entries)
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    want = {"conv1d_shuffle_w4": cfg.n_layers, "ssd": cfg.n_layers}
+    if cfg.family == "hybrid":
+        want["flash_attention"] = cfg.n_layers // cfg.attn_every
+    tag = "" if arch == MAMBA else f"[{arch}]"
+    rec = report.setdefault("serving", {}).setdefault(arch, {})
+    reduced_card_vs_cpu(rec, arch)
+    launches, captured = serve_run(rec, arch, want)
+    layer0_conv1d(kernels["conv"], captured.pop("conv"), launches, rec, entries,
+                  "conv1d_shuffle" + tag)
+    layer0_ssd(kernels["ssd"], captured.pop("ssd"), launches, rec, entries, "ssd" + tag)
+    if "flash" in captured:
+        layer0_flash(kernels["flash"], captured.pop("flash"), launches, rec, entries)
     torch.cuda.empty_cache()
-    continuity(report)
+    continuity(rec, arch)
     torch.cuda.empty_cache()
 
 
@@ -540,6 +669,7 @@ def main() -> int:
     from repro_torch.core.frontend.cuda_lower import synthesize_cuda
     from repro_torch.core.frontend.kernelgen import get_bench
     from repro_torch.kernels import conv1d as tconv
+    from repro_torch.kernels import flash_attention as tfa
     from repro_torch.kernels import ssd as tssd
     from repro_torch.kernels.stencil import (
         MODES, build_kernels, launch_counts, reference,
@@ -564,15 +694,17 @@ def main() -> int:
     # -- 2. build: one nvcc per source, all started together -----------------
     conv_items = [(m, W) for W in (4, 3) for m in tconv.MODES]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
+    with ThreadPoolExecutor(max_workers=3) as pool:
         conv_job = pool.submit(tconv.build_kernels, conv_items)
         ssd_job = pool.submit(tssd.build_kernel)
+        fa_job = pool.submit(tfa.build_kernel)
         benches = {n: get_bench(n) for n in STENCIL_BENCHES}
         items = [(b.program, m, b.max_delta) for b in benches.values() for m in MODES]
         kernels = dict(zip([(n, m) for n in benches for m in MODES],
                            build_kernels(items)))
         conv = dict(zip(conv_items, conv_job.result()))
         ssd_kernel = ssd_job.result()
+        fa_kernel = fa_job.result()
     build_s = time.perf_counter() - t0
     lib = next(iter(kernels.values())).library
     print(f"[build] {len(kernels)} kernels, one nvcc call: {lib.seconds:.1f} s "
@@ -593,8 +725,9 @@ def main() -> int:
     conv_lib = conv[conv_items[0]].library
     print(f"[build] conv1d: {len(conv_items)} kernels x (f32, bf16) vector widths, "
           f"one nvcc call: {conv_lib.seconds:.1f} s; ssd: one nvcc call: "
-          f"{ssd_kernel.library.seconds:.1f} s; all three builds together "
-          f"{build_s:.1f} s")
+          f"{ssd_kernel.library.seconds:.1f} s; flash_attention (Dh 8-128 x f32, "
+          f"bf16): one nvcc call: {fa_kernel.library.seconds:.1f} s; all four "
+          f"builds together {build_s:.1f} s")
     conv_sass = sass_counts(str(conv_lib.path))
     for key, k in conv.items():
         inst = sass_instances(conv_sass, k.symbol)
@@ -612,6 +745,12 @@ def main() -> int:
     for i, c in ssd_sass.items():
         print(f"[sass] ssd_kernel         {i:<7} SHFL {c['shfl']:>3} LDG {c['ldg']:>3}")
     report["sass"]["ssd_kernel"] = ssd_sass
+    fa_sass = sass_instances(sass_counts(str(fa_kernel.library.path)), "flash_kernel")
+    if len(fa_sass) != 2 * len(tfa.HEAD_DIMS):
+        raise RuntimeError(f"flash_kernel: {len(fa_sass)} template instances in the SASS")
+    for i, c in fa_sass.items():
+        print(f"[sass] flash_kernel       {i:<7} SHFL {c['shfl']:>3} LDG {c['ldg']:>3}")
+    report["sass"]["flash_kernel"] = fa_sass
 
     # -- 3. parity on the card at a ragged medium shape ------------------------
     for i, (name, b) in enumerate(benches.items()):
@@ -645,6 +784,7 @@ def main() -> int:
         del xs, want, outs
 
     serving_parity(conv, ssd_kernel, report)
+    flash_parity(fa_kernel, report)
 
     # -- 4. the main path at the paper's sizes ------------------------------
     entries = []
@@ -732,11 +872,13 @@ def main() -> int:
         report["paper"][name] = rec
         del xs
 
-    # -- 5. the serving path: mamba2-1.3b at full width ---------------------
-    torch.cuda.empty_cache()
-    serving_path(conv, ssd_kernel, report, entries)
+    # -- 5, 6. the serving paths: mamba2-1.3b, then zamba2-1.2b, full width ---
+    serving_kernels = {"conv": conv, "ssd": ssd_kernel, "flash": fa_kernel}
+    for arch in (MAMBA, HYBRID):
+        torch.cuda.empty_cache()
+        serving_path(arch, serving_kernels, report, entries)
 
-    # -- 6. records ------------------------------------------------------------
+    # -- 7. records ------------------------------------------------------------
     report["card"] = card
     report["seconds"] = time.perf_counter() - t_start
     os.makedirs(os.path.dirname(REPORT), exist_ok=True)

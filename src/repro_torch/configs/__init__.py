@@ -8,5 +8,6 @@ from .base import (  # noqa: F401
 
 # side-effect registration of every architecture whose path is ported
 from . import mamba2_1_3b  # noqa: F401
+from . import zamba2_1_2b  # noqa: F401
 
 ARCHS = sorted(all_configs())

@@ -4,8 +4,9 @@
 with ``repro.core.frontend.stencil`` as this package's ``Program``, by
 walking its dataclass fields and class names, so nothing of ``repro`` is
 imported.  :func:`arrays_from_numpy` keeps the reference's layout, with
-``i`` as the last axis.  :func:`ssm_params_from_reference` turns the
-reference's initialized ``SSMModel`` parameters into this package's
+``i`` as the last axis.  :func:`ssm_params_from_reference` and
+:func:`hybrid_params_from_reference` turn the reference's initialized
+``SSMModel`` and ``HybridModel`` parameters into this package's
 ``state_dict``.
 """
 
@@ -66,13 +67,42 @@ def ssm_params_from_reference(cfg, tree: Mapping[str, Any]) -> Dict[str, torch.T
     """The ``state_dict`` of ``repro_torch.models.SSMModel(cfg)`` holding
     the reference's unboxed ``SSMModel.init`` parameters (numpy leaves;
     block leaves stacked on a leading layer axis)."""
+    sd = _head_params(tree)
+    for i in range(cfg.n_layers):
+        _mamba_block(sd, i, tree["blocks"], (i,))
+    return sd
+
+
+def hybrid_params_from_reference(cfg, tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of ``repro_torch.models.HybridModel(cfg)``
+    holding the reference's unboxed ``HybridModel.init`` parameters
+    (numpy leaves): ``supers[s][j]`` becomes block ``s * attn_every + j``,
+    ``trail[t]`` block ``n_super * attn_every + t``, and ``shared_attn``
+    the shared transformer block."""
+    ne = cfg.attn_every
+    n_super = cfg.n_layers // ne
+    sd = _head_params(tree)
+    for s in range(n_super):
+        for j in range(ne):
+            _mamba_block(sd, s * ne + j, tree["supers"], (s, j))
+    for t in range(cfg.n_layers - n_super * ne):
+        _mamba_block(sd, n_super * ne + t, tree["trail"], (t,))
+    for part, leaves in tree["shared_attn"].items():
+        for name, leaf in leaves.items():
+            sd[f"shared_attn.{part}.{name}"] = _tensor(leaf)
+    return sd
+
+
+def _head_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     sd = {"embed.table": _tensor(tree["embed"]["table"])}
     for name, leaf in tree["ln_f"].items():
         sd[f"ln_f.{name}"] = _tensor(leaf)
-    blocks = tree["blocks"]
-    for i in range(cfg.n_layers):
-        for name, leaf in blocks["ln"].items():
-            sd[f"blocks.{i}.ln.{name}"] = _tensor(np.asarray(leaf)[i])
-        for name, leaf in blocks["mamba"].items():
-            sd[f"blocks.{i}.mamba.{name}"] = _tensor(np.asarray(leaf)[i])
     return sd
+
+
+def _mamba_block(sd: Dict[str, torch.Tensor], i: int,
+                 stacked: Mapping[str, Any], index: tuple) -> None:
+    """Block ``i`` of the port from the stacked leaves at ``index``."""
+    for part in ("ln", "mamba"):
+        for name, leaf in stacked[part].items():
+            sd[f"blocks.{i}.{part}.{name}"] = _tensor(np.asarray(leaf)[index])

@@ -1,11 +1,16 @@
 """Serving driver: batched prefill + greedy decode (mirrors
 ``src/repro/launch/serve.py``).
 
-Requests come from the synthetic ``TokenPipeline``; the weights are
-random, drawn on the device from ``--seed``.  On the card the prefill of
-every Mamba-2 layer runs the CUDA conv1d and SSD kernels.
+Serves ``mamba2-1.3b`` (attention-free) and ``zamba2-1.2b`` (hybrid:
+Mamba-2 blocks and one shared attention block).  Requests come from the
+synthetic ``TokenPipeline``; the weights are random, drawn on the device
+from ``--seed``.  On the card the prefill of every Mamba-2 layer runs the
+CUDA conv1d and SSD kernels, and every application of the shared
+attention block the CUDA flash-attention kernel.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
+      --reduced --device cpu --batch 4 --prompt-len 32 --gen 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
       --reduced --device cpu --batch 4 --prompt-len 32 --gen 16
 """
 
@@ -16,7 +21,7 @@ import time
 
 import torch
 
-from repro_torch.configs import get_config, reduced
+from repro_torch.configs import ARCHS, get_config, reduced
 from repro_torch.data import DataConfig, TokenPipeline
 from repro_torch.models import build_model
 from repro_torch.serve import generate
@@ -25,7 +30,7 @@ from repro_torch.serve import generate
 def main(argv=None) -> dict:
     """Returns the generated tokens, the timings and the model served."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="mamba2-1.3b")
+    ap.add_argument("--arch", default="mamba2-1.3b", choices=ARCHS)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--batch", type=int, default=4)

@@ -1,0 +1,162 @@
+"""Grouped-query attention: prefill and decode (mirrors
+``src/repro/models/attention.py``; cross and ring attention are not
+ported yet).
+
+Where the reference calls its jnp ``blockwise_attention`` (the point at
+which a real TPU would run the Pallas flash kernel), ``prefill_attention``
+calls the port's :func:`~repro_torch.kernels.flash_attention.flash_attention`:
+on a CUDA tensor the hand-written CUDA kernel, on a CPU tensor its plain
+version.  ``blockwise_attention`` is the reference's flash-style
+algorithm in plain PyTorch, kept for parity with the JAX package; decode
+is plain PyTorch, as it is plain jnp in the reference.  The projections
+are ``torch.matmul``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Tuple
+
+import torch
+
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_ref
+from .common import Params, apply_rope, dense_init
+
+
+class AttnConfig(NamedTuple):
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    rope_theta: float = 1e4
+    causal: bool = True
+    q_block: int = 512
+    kv_block: int = 512
+
+
+def init_attention(gen: torch.Generator, cfg: AttnConfig,
+                   dtype: torch.dtype = torch.float32) -> Params:
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {
+        "wq": dense_init(gen, (d, h, hd), dtype=dtype),
+        "wk": dense_init(gen, (d, kv, hd), dtype=dtype),
+        "wv": dense_init(gen, (d, kv, hd), dtype=dtype),
+        "wo": dense_init(gen, (h, hd, d), in_axis=0, dtype=dtype),
+    }
+
+
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk") as one matmul."""
+    d, h, k = w.shape
+    return torch.matmul(x, w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
+
+
+def _output(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd") as one matmul."""
+    h, k, d = wo.shape
+    return torch.matmul(out.reshape(*out.shape[:-2], h * k), wo.reshape(h * k, d))
+
+
+def qkv(params: Params, x: torch.Tensor, positions: torch.Tensor,
+        cfg: AttnConfig) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    q = _project(x, params["wq"])
+    k = _project(x, params["wk"])
+    v = _project(x, params["wv"])
+    if cfg.rope_theta:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    cfg: AttnConfig, q_offset: int = 0) -> torch.Tensor:
+    """Reference O(S^2)-memory attention: the flash kernel's plain version."""
+    return attention_ref(q, k, v, causal=cfg.causal, q_offset=q_offset)
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        cfg: AttnConfig, q_offset: int = 0) -> torch.Tensor:
+    """Causal (or full) attention without materializing S x S scores: the
+    reference's two-level loop (query blocks, then key blocks with an
+    online softmax).  q: (B, Sq, H, Dh); k, v: (B, Sk, KV, Dh).  Padded
+    keys get position 2**30, so every mask excludes them."""
+    B, Sq, H, Dh = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qb, kb = min(cfg.q_block, Sq), min(cfg.kv_block, Sk)
+    Sq_p, Sk_p = -(-Sq // qb) * qb, -(-Sk // kb) * kb
+    f32, dev = torch.float32, q.device
+    qf = torch.zeros((B, Sq_p, H, Dh), dtype=f32, device=dev)
+    qf[:, :Sq] = q.float() * (1.0 / math.sqrt(Dh))
+    kf = torch.zeros((B, Sk_p, H, Dh), dtype=f32, device=dev)
+    vf = torch.zeros((B, Sk_p, H, Dh), dtype=f32, device=dev)
+    kf[:, :Sk] = torch.repeat_interleave(k.float(), G, dim=2)
+    vf[:, :Sk] = torch.repeat_interleave(v.float(), G, dim=2)
+    q_pos = q_offset + torch.arange(Sq_p, device=dev)
+    k_pos = torch.arange(Sk_p, device=dev)
+    k_pos = torch.where(k_pos < Sk, k_pos, torch.full_like(k_pos, 2 ** 30))
+    force_mask = cfg.causal or Sk_p != Sk
+
+    out = torch.empty((B, Sq_p, H, Dh), dtype=f32, device=dev)
+    for i0 in range(0, Sq_p, qb):
+        qblk, qp = qf[:, i0:i0 + qb], q_pos[i0:i0 + qb]
+        m = torch.full((B, H, qb), NEG_INF, dtype=f32, device=dev)
+        l = torch.zeros((B, H, qb), dtype=f32, device=dev)
+        acc = torch.zeros((B, H, qb, Dh), dtype=f32, device=dev)
+        for j0 in range(0, Sk_p, kb):
+            kp = k_pos[j0:j0 + kb]
+            s = torch.einsum("bqhd,bkhd->bhqk", qblk, kf[:, j0:j0 + kb])
+            if force_mask:
+                if cfg.causal:
+                    mask = qp[:, None] >= kp[None, :]
+                else:
+                    mask = (kp[None, :] < 2 ** 30).expand(qb, kb)
+                s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p, vf[:, j0:j0 + kb])
+            m = m_new
+        blk = acc / torch.clamp(l, min=1e-30)[..., None]       # (B,H,qb,Dh)
+        out[:, i0:i0 + qb] = blk.transpose(1, 2)
+    return out[:, :Sq].to(q.dtype)
+
+
+def prefill_attention(params: Params, x: torch.Tensor, cfg: AttnConfig):
+    """Full-sequence causal self-attention that also returns the (k, v)
+    cache.  x: (B, S, D)."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    q, k, v = qkv(params, x, positions, cfg)
+    out = flash_attention(q, k, v, causal=cfg.causal)
+    return _output(out, params["wo"]), (k, v)
+
+
+def decode_attention(params: Params, x: torch.Tensor,
+                     cache: Tuple[torch.Tensor, torch.Tensor],
+                     pos: torch.Tensor, cfg: AttnConfig):
+    """Single-token decode: x (B, 1, D); cache k/v (B, S, KV, Dh); pos (B,)
+    current absolute position.  Returns (out, (k, v)).
+
+    The reference blends the new k/v in with a one-hot over S and returns
+    new arrays; here they are written at ``pos`` by an index write into
+    the cache tensors themselves, which are returned.  A ``pos`` at or
+    past S raises here, where the one-hot would drop the write."""
+    ck, cv = cache
+    B, S, KV, Dh = ck.shape
+    q, k_new, v_new = qkv(params, x, pos[:, None], cfg)
+    rows, pos = torch.arange(B, device=x.device), pos.long()
+    ck[rows, pos] = k_new[:, 0]
+    cv[rows, pos] = v_new[:, 0]
+    H = q.shape[2]
+    qr = q.reshape(B, 1, KV, H // KV, Dh).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qr, ck.float()) / math.sqrt(Dh)
+    valid = torch.arange(S, device=x.device)[None] <= pos[:, None]       # (B, S)
+    s = torch.where(valid[:, None, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, cv.float())
+    out = out.reshape(B, 1, H, Dh).to(x.dtype)
+    return _output(out, params["wo"]), (ck, cv)

@@ -1,5 +1,5 @@
-"""Shared model components: norms and initializers (mirrors
-``src/repro/models/common.py``).
+"""Shared model components: norms, initializers and rotary position
+embeddings (mirrors ``src/repro/models/common.py``).
 
 The reference annotates every parameter with logical axis names for its
 sharding layer; one card shards nothing, so parameters here are plain
@@ -106,3 +106,26 @@ def apply_norm(params: Mapping[str, torch.Tensor], x: torch.Tensor, kind: str,
     if kind == "nonparametric":
         return layernorm(x, None, None, impl=impl)
     raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float = 1e4,
+                     device: Optional[torch.device] = None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 1e4) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq).  Rotates the
+    two halves of the head dim in float32 and returns x's dtype."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)
+    angles = positions[..., :, None].float() * freqs            # (..., S, hd/2)
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

@@ -1,16 +1,18 @@
 """Language-model assembly (mirrors ``src/repro/models/lm.py``; the SSM
-family so far).
+and hybrid families so far).
 
-:class:`SSMModel` keeps the reference's serving API, with the parameters
-inside the module instead of a pytree argument:
+:class:`SSMModel` and :class:`HybridModel` keep the reference's serving
+API, with the parameters inside the module instead of a pytree argument:
 
   init_cache(batch_size, seq_len)  -> cache dict
   prefill(batch, max_len)          -> (last logits, cache)
   decode_step(tokens, cache)       -> (logits, cache)
 
-``build_model(cfg, device, generator)`` is the factory; families whose
-path is not ported yet raise ``NotImplementedError``.  Entry points run
-on the card unless ``device="cpu"`` is asked for.
+The reference scans over stacked layers; here a Python loop runs a flat
+``ModuleList`` of blocks.  ``build_model(cfg, device, generator)`` is the
+factory; families whose path is not ported yet raise
+``NotImplementedError``.  Entry points run on the card unless
+``device="cpu"`` is asked for.
 """
 
 from __future__ import annotations
@@ -21,8 +23,10 @@ import torch
 import torch.nn as nn
 
 from repro_torch.configs.base import ModelConfig
+from . import attention as attn
 from . import mamba2 as m2
-from .common import apply_norm, embed_init, init_norm
+from . import mlp as mlpm
+from .common import Params, apply_norm, embed_init, init_norm
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -37,6 +41,35 @@ def _device(device: str) -> torch.device:
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run the plain PyTorch versions")
     return dev
+
+
+def _generator(dev: torch.device,
+               generator: Optional[torch.Generator]) -> torch.Generator:
+    """``generator``, or seed 0 on ``dev`` if None."""
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    if generator.device.type != dev.type:
+        raise ValueError(f"generator on {generator.device}, model on {dev}")
+    return generator
+
+
+def _pad_kv(kv: torch.Tensor, max_len: Optional[int]) -> torch.Tensor:
+    """Pad a stacked KV cache (..., S, KV, Dh) with zeros along S to
+    ``max_len`` so decode steps have room to append."""
+    S = kv.shape[-3]
+    if max_len is None or S >= max_len:
+        return kv
+    out = kv.new_zeros(kv.shape[:-3] + (max_len,) + kv.shape[-2:])
+    out[..., :S, :, :] = kv
+    return out
+
+
+def _attn_cfg(cfg: ModelConfig) -> attn.AttnConfig:
+    """Causal self-attention of the shared block."""
+    return attn.AttnConfig(
+        d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim, rope_theta=cfg.rope_theta, causal=True,
+        q_block=cfg.q_block, kv_block=cfg.kv_block)
 
 
 def _frozen(params: Dict[str, torch.Tensor]) -> nn.ParameterDict:
@@ -54,6 +87,54 @@ class SSMBlock(nn.Module):
         self.mamba = m2.Mamba2(scfg, gen, dtype)
 
 
+# ---------------------------------------------------------------------------
+# transformer block (dense ffn)
+# ---------------------------------------------------------------------------
+
+def init_tblock(gen: torch.Generator, cfg: ModelConfig,
+                dtype: torch.dtype) -> Dict[str, Params]:
+    if cfg.n_experts:
+        raise NotImplementedError(f"{cfg.name}: the MoE ffn is not ported yet")
+    dev = gen.device
+    return {"ln1": init_norm(cfg.d_model, cfg.norm, dtype, dev),
+            "attn": attn.init_attention(gen, _attn_cfg(cfg), dtype),
+            "ln2": init_norm(cfg.d_model, cfg.norm, dtype, dev),
+            "mlp": mlpm.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp, dtype)}
+
+
+class TBlock(nn.Module):
+    """Pre-norm attention + MLP block; its parameter dicts carry the
+    reference's names (``ln1``, ``attn``, ``ln2``, ``mlp``)."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, dtype: torch.dtype):
+        super().__init__()
+        for name, params in init_tblock(gen, cfg, dtype).items():
+            setattr(self, name, _frozen(params))
+
+
+def prefill_tblock(p: TBlock, x: torch.Tensor, cfg: ModelConfig):
+    """x: (B, S, D) -> (x', (k, v))."""
+    h = apply_norm(p.ln1, x, cfg.norm, impl=cfg.norm_impl)
+    a, kv = attn.prefill_attention(p.attn, h, _attn_cfg(cfg))
+    x = x + a
+    h = apply_norm(p.ln2, x, cfg.norm, impl=cfg.norm_impl)
+    return x + mlpm.apply_mlp(p.mlp, h, cfg.mlp), kv
+
+
+def decode_tblock(p: TBlock, x: torch.Tensor, kv_cache, pos: torch.Tensor,
+                  cfg: ModelConfig):
+    """x: (B, 1, D); the k/v cache is written at ``pos`` in place."""
+    h = apply_norm(p.ln1, x, cfg.norm, impl=cfg.norm_impl)
+    a, kv_cache = attn.decode_attention(p.attn, h, kv_cache, pos, _attn_cfg(cfg))
+    x = x + a
+    h = apply_norm(p.ln2, x, cfg.norm, impl=cfg.norm_impl)
+    return x + mlpm.apply_mlp(p.mlp, h, cfg.mlp), kv_cache
+
+
+# ---------------------------------------------------------------------------
+# SSM (mamba2) model
+# ---------------------------------------------------------------------------
+
 class SSMModel(nn.Module):
     """Embedding, a stack of Mamba-2 blocks and a final norm; the
     unembedding is tied to the (row-padded) embedding table.  The
@@ -63,10 +144,7 @@ class SSMModel(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         dev = _device(device)
-        if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
-        if generator.device.type != dev.type:
-            raise ValueError(f"generator on {generator.device}, model on {dev}")
+        generator = _generator(dev, generator)
         self.cfg = cfg
         self.dtype = _dtype(cfg)
         scfg = self.ssm_cfg()
@@ -103,50 +181,135 @@ class SSMModel(nn.Module):
         return {"conv": conv, "ssm": ssm,
                 "pos": torch.zeros(batch_size, dtype=torch.int32, device=dev)}
 
+    def _mamba_prefill(self, i: int, x: torch.Tensor, convs: list, ssms: list):
+        """Block i over the full sequence; appends its conv and SSM states."""
+        cfg, blk = self.cfg, self.blocks[i]
+        h = apply_norm(blk.ln, x, cfg.norm, impl=cfg.norm_impl)
+        y, (cs, ss) = blk.mamba(h, return_state=True)
+        convs.append(cs)
+        ssms.append(ss)
+        return x + y
+
+    def _mamba_decode(self, i: int, x: torch.Tensor, cache, convs: list, ssms: list):
+        """Block i for one token; appends its new conv and SSM states."""
+        cfg, blk = self.cfg, self.blocks[i]
+        h = apply_norm(blk.ln, x, cfg.norm, impl=cfg.norm_impl)
+        y, (cs, ss) = blk.mamba.decode_step(h, (cache["conv"][i], cache["ssm"][i]))
+        convs.append(cs)
+        ssms.append(ss)
+        return x + y
+
+    def _final(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, D) hidden after the last block -> (B, vocab) logits."""
+        cfg = self.cfg
+        return self._logits(apply_norm(self.ln_f, x, cfg.norm, impl=cfg.norm_impl))
+
     @torch.inference_mode()
     def prefill(self, batch: Dict[str, torch.Tensor],
                 max_len: Optional[int] = None):
         """batch["tokens"]: (B, S) -> (last logits (B, vocab), cache)."""
-        cfg = self.cfg
         tokens = batch["tokens"].to(self.device)
         x = self.embed["table"][tokens]
         convs, ssms = [], []
-        for blk in self.blocks:
-            h = apply_norm(blk.ln, x, cfg.norm, impl=cfg.norm_impl)
-            y, (cs, ss) = blk.mamba(h, return_state=True)
-            x = x + y
-            convs.append(cs)
-            ssms.append(ss)
-        h = apply_norm(self.ln_f, x, cfg.norm, impl=cfg.norm_impl)
-        logits = self._logits(h[:, -1])
+        for i in range(self.cfg.n_layers):
+            x = self._mamba_prefill(i, x, convs, ssms)
         B, S = tokens.shape
-        return logits, {"conv": torch.stack(convs).to(self.dtype),
-                        "ssm": torch.stack(ssms),
-                        "pos": torch.full((B,), S, dtype=torch.int32,
-                                          device=self.device)}
+        return self._final(x[:, -1]), {
+            "conv": torch.stack(convs).to(self.dtype), "ssm": torch.stack(ssms),
+            "pos": torch.full((B,), S, dtype=torch.int32, device=self.device)}
 
     @torch.inference_mode()
     def decode_step(self, tokens: torch.Tensor, cache):
         """tokens: (B,) -> (logits (B, vocab), new cache)."""
-        cfg = self.cfg
         x = self.embed["table"][tokens.to(self.device)]           # (B, D)
         convs, ssms = [], []
-        for i, blk in enumerate(self.blocks):
-            h = apply_norm(blk.ln, x, cfg.norm, impl=cfg.norm_impl)
-            y, (cs, ss) = blk.mamba.decode_step(h, (cache["conv"][i],
-                                                    cache["ssm"][i]))
-            x = x + y
-            convs.append(cs)
-            ssms.append(ss)
-        h = apply_norm(self.ln_f, x, cfg.norm, impl=cfg.norm_impl)
-        return self._logits(h), {"conv": torch.stack(convs),
-                                 "ssm": torch.stack(ssms),
-                                 "pos": cache["pos"] + 1}
+        for i in range(self.cfg.n_layers):
+            x = self._mamba_decode(i, x, cache, convs, ssms)
+        return self._final(x), {"conv": torch.stack(convs),
+                                "ssm": torch.stack(ssms),
+                                "pos": cache["pos"] + 1}
+
+
+# ---------------------------------------------------------------------------
+# hybrid (zamba2): mamba backbone + one shared attention block
+# ---------------------------------------------------------------------------
+
+class HybridModel(SSMModel):
+    """Supercells of (shared attention block + ``attn_every`` Mamba-2
+    blocks) plus trailing Mamba-2 blocks; the attention block's weights
+    are SHARED by all its applications (Zamba's parameter-sharing trick).
+    ``blocks[s * attn_every + j]`` is block j of supercell s, and the
+    trailing blocks follow.  On the card each application of the shared
+    block runs the CUDA flash-attention kernel once per prefill."""
+
+    def __init__(self, cfg: ModelConfig, device: str = "cuda",
+                 generator: Optional[torch.Generator] = None):
+        generator = _generator(_device(device), generator)
+        super().__init__(cfg, device=device, generator=generator)
+        self.n_super = cfg.n_layers // cfg.attn_every
+        self.n_trail = cfg.n_layers - self.n_super * cfg.attn_every
+        self.shared_attn = TBlock(cfg, generator, self.dtype)
+
+    def init_cache(self, batch_size: int, seq_len: int) -> Dict[str, Any]:
+        cache = super().init_cache(batch_size, seq_len)
+        shape = (self.n_super, batch_size, seq_len, self.cfg.n_kv_heads,
+                 self.cfg.head_dim)
+        cache["attn_k"] = torch.zeros(shape, dtype=self.dtype, device=self.device)
+        cache["attn_v"] = torch.zeros(shape, dtype=self.dtype, device=self.device)
+        return cache
+
+    @torch.inference_mode()
+    def prefill(self, batch: Dict[str, torch.Tensor],
+                max_len: Optional[int] = None):
+        """batch["tokens"]: (B, S) -> (last logits (B, vocab), cache); the
+        k/v caches are zero-padded along S to ``max_len``."""
+        cfg, ne = self.cfg, self.cfg.attn_every
+        tokens = batch["tokens"].to(self.device)
+        x = self.embed["table"][tokens]
+        convs, ssms, ks, vs = [], [], [], []
+        for s in range(self.n_super):
+            x, (k, v) = prefill_tblock(self.shared_attn, x, cfg)
+            ks.append(k)
+            vs.append(v)
+            for j in range(ne):
+                x = self._mamba_prefill(s * ne + j, x, convs, ssms)
+        for t in range(self.n_trail):
+            x = self._mamba_prefill(self.n_super * ne + t, x, convs, ssms)
+        B, S = tokens.shape
+        return self._final(x[:, -1]), {
+            "conv": torch.stack(convs).to(self.dtype), "ssm": torch.stack(ssms),
+            "attn_k": _pad_kv(torch.stack(ks), max_len),
+            "attn_v": _pad_kv(torch.stack(vs), max_len),
+            "pos": torch.full((B,), S, dtype=torch.int32, device=self.device)}
+
+    @torch.inference_mode()
+    def decode_step(self, tokens: torch.Tensor, cache):
+        """tokens: (B,) -> (logits (B, vocab), new cache).  The k/v caches
+        are written at ``pos`` in place and returned as they are."""
+        cfg, ne = self.cfg, self.cfg.attn_every
+        x = self.embed["table"][tokens.to(self.device)]           # (B, D)
+        pos = cache["pos"]
+        convs, ssms = [], []
+        for s in range(self.n_super):
+            y, _ = decode_tblock(self.shared_attn, x[:, None],
+                                 (cache["attn_k"][s], cache["attn_v"][s]), pos, cfg)
+            x = y[:, 0]
+            for j in range(ne):
+                x = self._mamba_decode(s * ne + j, x, cache, convs, ssms)
+        for t in range(self.n_trail):
+            x = self._mamba_decode(self.n_super * ne + t, x, cache, convs, ssms)
+        return self._final(x), {"conv": torch.stack(convs), "ssm": torch.stack(ssms),
+                                "attn_k": cache["attn_k"], "attn_v": cache["attn_v"],
+                                "pos": pos + 1}
+
+
+_FAMILIES = {"ssm": SSMModel, "hybrid": HybridModel}
 
 
 def build_model(cfg: ModelConfig, device: str = "cuda",
                 generator: Optional[torch.Generator] = None) -> nn.Module:
-    if cfg.family == "ssm":
-        return SSMModel(cfg, device=device, generator=generator)
-    raise NotImplementedError(f"model family {cfg.family!r} ({cfg.name}) is "
-                              f"not ported yet; the port serves: ssm")
+    if cfg.family not in _FAMILIES:
+        raise NotImplementedError(f"model family {cfg.family!r} ({cfg.name}) is "
+                                  f"not ported yet; the port serves: "
+                                  f"{', '.join(_FAMILIES)}")
+    return _FAMILIES[cfg.family](cfg, device=device, generator=generator)

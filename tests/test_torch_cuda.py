@@ -1,5 +1,6 @@
-"""The CUDA kernels on the card (stencil, conv1d, SSD) and the Mamba-2
-serving path, against their plain PyTorch versions.  Imports only torch
+"""The CUDA kernels on the card (stencil, conv1d, SSD, flash attention)
+and the Mamba-2 and Zamba2 serving paths, against their plain PyTorch
+versions.  Imports only torch
 and the port, so it runs where JAX is not installed:  PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 Every test here skips without a CUDA device."""
 
@@ -12,6 +13,7 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.core.frontend.kernelgen import get_bench
 from repro_torch.interop import arrays_from_numpy
 from repro_torch.kernels import conv1d as tconv
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ssd as tssd
 from repro_torch.models import build_model
 from repro_torch.kernels.stencil import (
@@ -239,3 +241,98 @@ def test_mamba2_prefill_on_card_matches_plain(card):
     got2, _ = gpu.decode_step(nxt.cuda(), cache)
     want2, _ = cpu.decode_step(nxt, want_cache)
     torch.testing.assert_close(got2.cpu(), want2, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# flash attention (the Zamba2 serving path)
+# ---------------------------------------------------------------------------
+
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 6e-2}    # the reference's
+# (B, Sq, Sk, H, KV, Dh, causal): the reference test's five shapes, Sq
+# above a ragged Sk, GQA with Dh 128, and the serving shape
+FLASH_SHAPES = [(2, 64, 64, 4, 2, 16, True), (1, 100, 100, 4, 4, 8, True),
+                (2, 64, 64, 8, 2, 16, False), (1, 33, 33, 2, 1, 32, True),
+                (2, 48, 96, 4, 1, 16, True), (1, 40, 20, 2, 1, 8, True),
+                (2, 200, 200, 8, 2, 128, True), (4, 1024, 1024, 32, 32, 64, True)]
+
+
+def _qkv(B, Sq, Sk, H, KV, Dh, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return (_randn((B, Sq, H, Dh), dtype, rng), _randn((B, Sk, KV, Dh), dtype, rng),
+            _randn((B, Sk, KV, Dh), dtype, rng))
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_flash_attention_matches_plain(card, shape, dtype):
+    B, Sq, Sk, H, KV, Dh, causal = shape
+    q, k, v = _qkv(B, Sq, Sk, H, KV, Dh, DTYPES[dtype], sum(shape))
+    kernel = tfa.build_kernel()
+    before = kernel.launches
+    out = tfa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert out.dtype == q.dtype and tuple(out.shape) == (B, Sq, H, Dh)
+    want = tfa.ref.attention_ref(q, k, v, causal)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_takes_strided_positions(card):
+    """q, k, v as slices along the batch and position axes (each
+    position's heads x Dh contiguous), as a caller may pass them."""
+    q, k, v = _qkv(3, 90, 90, 4, 2, 32, torch.float32, 5)
+    qs, ks, vs = q[::2, 10:], k[::2, 10:], v[::2, 10:]
+    assert not qs.is_contiguous()
+    out = tfa.flash_attention(qs, ks, vs)
+    want = tfa.ref.attention_ref(qs, ks, vs)
+    torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
+
+
+def test_flash_wrapper_rejects_bad_inputs(card):
+    q, k, v = _qkv(1, 16, 16, 4, 2, 16, torch.float32, 6)
+    kernel = tfa.build_kernel()
+    with pytest.raises(TypeError):
+        kernel(q.double(), k.double(), v.double())
+    with pytest.raises(TypeError):
+        kernel(q, k.bfloat16(), v)
+    with pytest.raises(ValueError):
+        kernel(q.cpu(), k, v)
+    with pytest.raises(ValueError, match="head dim"):
+        kernel(q[..., :12].contiguous(), k[..., :12].contiguous(), v[..., :12].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel(q.transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="multiple"):
+        kernel(q[:, :, :3].contiguous(), k, v)
+    q2, k2, v2 = _qkv(1, 16, 100, 2, 1, 16, torch.float32, 7)
+    with pytest.raises(ValueError, match="non-causal"):
+        kernel(q2, k2, v2, causal=False)
+
+
+def test_zamba2_prefill_on_card_matches_plain(card):
+    """The reduced 5-layer hybrid (two supercells, one trailing block):
+    prefill and one decode step on the card (2 flash-attention, 5 conv1d
+    and 5 SSD launches per prefill) against the same weights on the CPU."""
+    cfg = reduced(get_config("zamba2-1.2b")).replace(n_layers=5)
+    cpu = build_model(cfg, device="cpu")
+    gpu = build_model(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 48)))
+    for mod in (tconv, tssd, tfa):
+        mod.reset_launch_counts()
+    got, cache = gpu.prefill({"tokens": tokens.cuda()}, max_len=50)
+    torch.cuda.synchronize()
+    assert tconv.launch_counts()["conv1d_shuffle_w4"] == cfg.n_layers
+    assert tssd.launch_counts()["ssd"] == cfg.n_layers
+    assert tfa.launch_counts()["flash_attention"] == gpu.n_super == 2
+    want, want_cache = cpu.prefill({"tokens": tokens}, max_len=50)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    for key in ("conv", "ssm", "attn_k", "attn_v"):
+        torch.testing.assert_close(cache[key].cpu(), want_cache[key],
+                                   rtol=1e-4, atol=1e-4)
+    nxt = want.argmax(-1)
+    got2, _ = gpu.decode_step(nxt.cuda(), cache)
+    want2, _ = cpu.decode_step(nxt, want_cache)
+    torch.testing.assert_close(got2.cpu(), want2, rtol=1e-4, atol=1e-4)
+    assert tfa.launch_counts()["flash_attention"] == 2      # decode launches none

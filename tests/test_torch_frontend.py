@@ -150,9 +150,11 @@ def test_port_imports_neither_jax_nor_reference():
     names = set(out.stdout.split())
     assert len(names) >= 20
     for pkg in ("configs", "models", "data", "serve", "launch",
-                "kernels.conv1d", "kernels.ssd"):
+                "kernels.conv1d", "kernels.ssd", "kernels.flash_attention"):
         assert f"repro_torch.{pkg}" in names, pkg
-    for mod in ("configs.mamba2_1_3b", "models.mamba2", "models.lm",
+    for mod in ("configs.mamba2_1_3b", "configs.zamba2_1_2b", "models.mamba2",
+                "models.attention", "models.mlp", "models.lm",
                 "data.pipeline", "serve.step", "launch.serve",
-                "kernels.conv1d.ops", "kernels.ssd.ops"):
+                "kernels.conv1d.ops", "kernels.ssd.ops",
+                "kernels.flash_attention.ops", "kernels.flash_attention.ref"):
         assert f"repro_torch.{mod}" in names, mod
