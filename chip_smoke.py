@@ -6,18 +6,22 @@ Phases, each fatal on failure:
 1. toolchain: torch, CUDA, device capability, nvcc, card and power limit;
 2. build: every (KernelGen stencil bench, mode) kernel in one nvcc call,
    and, at the same time, the conv1d kernels (naive / shuffle, widths 3
-   and 4, float32 and bfloat16), the SSD kernel and the flash-attention
-   kernel (head dims 8-128, float32 and bfloat16), each source in an
-   nvcc call of its own; then ``SHFL``/``LDG`` instructions counted per
-   kernel in the built SASS;
+   and 4, float32 and bfloat16), the SSD kernels (the bf16 tensor-core
+   instance's three passes and the CUDA-core instance) and the
+   flash-attention kernels (the bf16 tensor-core instance at Dh 16-128,
+   the CUDA-core one at Dh 8-128 in float32 and bfloat16), each source in
+   an nvcc call of its own; then ``SHFL``/``LDG``/``HGMMA``/``HMMA``
+   instructions counted per kernel in the built SASS (``HGMMA`` in every
+   tensor-core instance, in no CUDA-core one);
 3. parity: per stencil bench, the shuffle plan (emulator detection vs
    schedule) and each mode's kernel against the plain PyTorch version at
    a ragged medium shape, the three modes bitwise equal; conv1d (both
-   modes, bitwise equal) and SSD (y and final state, chunk 8 vs 64)
-   against their plain versions at ragged shapes; flash attention
-   against its plain version at the reference test's five shapes, Sq >
-   a ragged Sk, GQA with Dh 128 and the serving shape, float32 and
-   bfloat16;
+   modes, bitwise equal) and SSD (y and final state; chunk 8 vs 64, and
+   the tensor-core instance's chunk 64 vs 256 in bf16) against their
+   plain versions at ragged shapes; flash attention against its plain
+   version at the reference test's five shapes, Sq > a ragged Sk, GQA
+   with Dh 128, ragged Sq and Sk at Dh 64 and 128 and the serving shape,
+   float32 and bfloat16; each record names the instance that ran;
 4. the stencil main path at the paper's sizes (Jacobi 32768x32768,
    tricubic 512x1024x1024): DSL program -> PTX -> symbolic emulation ->
    shuffle detection -> ``stencil_apply`` in every mode, with launch
@@ -28,16 +32,20 @@ Phases, each fatal on failure:
    weights from a seed) serves 4 requests x 1024-token prompts x 32
    greedy tokens through ``repro_torch.launch.serve``, with launch counts
    read around the run (48 conv1d ``shuffle`` and 48 SSD launches per
-   prefill); layer 0's conv1d and SSD inputs are captured on that run,
-   each kernel (conv1d in both modes, bitwise equal) is held against its
-   plain version on them and timed beside its bound, the plain version
-   and (conv1d)
-   ``F.conv1d(groups=C)`` + SiLU; the reduced model on the card against
+   prefill, every SSD call on the tensor-core instance); layer 0's conv1d
+   and SSD inputs are captured on that run, each kernel (conv1d in both
+   modes, bitwise equal) is held against its plain version on them and
+   timed beside its bound, the plain version and (conv1d)
+   ``F.conv1d(groups=C)`` + SiLU, and the SSD's CUDA kernels timed one by
+   one from a ``torch.profiler`` trace; one more warm prefill is traced
+   and its device time split by kernel family (SSD, flash attention,
+   conv1d, matmul, other) beside its wall time; the reduced model on the card against
    the plain path on the CPU; and a float32 continuity check at full
    width (prefill 512 == prefill 256 + 256 decode steps);
 6. the hybrid serving path, the same way: zamba2-1.2b at its published
    widths serves the same traffic (per prefill 6 flash-attention, 38
-   conv1d ``shuffle`` and 38 SSD launches); the inputs of the first
+   conv1d ``shuffle`` and 38 SSD launches, every flash-attention and SSD
+   call on its tensor-core instance); the inputs of the first
    shared-attention call and of layer 0's conv1d and SSD are captured,
    held against the plain versions and timed (flash attention beside
    ``scaled_dot_product_attention``); the reduced 5-layer model (two
@@ -54,11 +62,11 @@ from __future__ import annotations
 import json
 import os
 import re
-import shutil
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -87,11 +95,13 @@ CONV_TOL = {"float32": 1e-5, "bfloat16": 5e-2}      # the reference kernel tests
 SSD_TOL = {"float32": 1e-4, "bfloat16": 8e-2}       # the reference kernel tests'
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 6e-2}     # the reference kernel tests'
 # (B, Sq, Sk, H, KV, Dh, causal): tests/test_kernels.py's five shapes, Sq
-# above a ragged Sk, GQA with Dh 128, and the serving shape
+# above a ragged Sk, GQA with Dh 128, ragged Sq and Sk at Dh 64 and (GQA)
+# 128, and the serving shape
 FLASH_SHAPES = [(2, 64, 64, 4, 2, 16, True), (1, 100, 100, 4, 4, 8, True),
                 (2, 64, 64, 8, 2, 16, False), (1, 33, 33, 2, 1, 32, True),
                 (2, 48, 96, 4, 1, 16, True), (1, 40, 20, 2, 1, 8, True),
-                (2, 200, 200, 8, 2, 128, True), (4, 1024, 1024, 32, 32, 64, True)]
+                (2, 200, 200, 8, 2, 128, True), (1, 300, 177, 4, 2, 64, True),
+                (1, 130, 250, 8, 2, 128, True), (4, 1024, 1024, 32, 32, 64, True)]
 # f32 continuity at full width: prefill 512 vs prefill 256 + 256 decode
 # steps, 48 layers.  Both sides are exact float32 algorithms that sum in
 # other orders (a chunked scan against a recurrence, batched against
@@ -161,24 +171,6 @@ def flops_per_point(expr) -> int:
     return 0
 
 
-def sass_counts(so_path: str) -> dict:
-    """Per kernel: SHFL and LDG instructions in the SASS."""
-    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    counts, fn = {}, None
-    for line in sh(cuobjdump, "-sass", so_path).splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            fn = m.group(1)
-            counts[fn] = {"shfl": 0, "ldg": 0}
-            continue
-        m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+([^;]+);", line)
-        if fn and m:
-            op = m.group(1)
-            counts[fn]["shfl"] += bool(re.search(r"\bSHFL\.", op))
-            counts[fn]["ldg"] += bool(re.search(r"\bLDG\.", op))
-    return counts
-
-
 def sass_instances(counts: dict, symbol: str) -> dict:
     """SASS counts of every compiled template instance of ``symbol``,
     keyed by its (dtype, vector width) read from the mangled name."""
@@ -190,6 +182,47 @@ def sass_instances(counts: dict, symbol: str) -> dict:
                     + (f"x{m.group(2)}" if m.group(2) else "")) if m else fn)
             out[key] = c
     return out
+
+
+def tc_instances(counts: dict, symbol: str) -> dict:
+    """SASS counts of every instance of the tensor-core kernel ``symbol``
+    (template arguments all integers), keyed by those arguments."""
+    out = {}
+    for fn, c in counts.items():
+        m = re.search(re.escape(symbol) + r"I((?:Li\d+E)+)E", fn)
+        if m:
+            out["x".join(re.findall(r"Li(\d+)E", m.group(1)))] = c
+    return out
+
+
+def check_tensor_cores(name: str, tc: dict, other: dict, report) -> None:
+    """HGMMA in every tensor-core instance, none in the CUDA-core ones."""
+    if not tc or any(c["hgmma"] == 0 for c in tc.values()):
+        raise RuntimeError(f"{name}: tensor-core instances without HGMMA: {tc}")
+    if any(c["hgmma"] or c["hmma"] for c in other.values()):
+        raise RuntimeError(f"{name}: CUDA-core instances with tensor-core products: {other}")
+    for i, c in {**tc, **other}.items():
+        print(f"[sass] {name:<15} {i:<12} HGMMA {c['hgmma']:>3} HMMA {c['hmma']:>2} "
+              f"SHFL {c['shfl']:>3} LDG {c['ldg']:>3}")
+    report["sass"][name] = {"tensor_core": tc, "cuda_core": other}
+
+
+def kernel_times(fn, n: int = 5) -> dict:
+    """Device microseconds per call of each CUDA kernel that ``fn``
+    launches, from a torch.profiler trace of n calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():             # the profiler's note on its cycles
+        warnings.simplefilter("ignore", UserWarning)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+    return {e.key.split("(")[0]: e.device_time_total / n
+            for e in prof.key_averages() if e.device_time_total > 0}
 
 
 def cold_ms(fns: dict, n: int) -> dict:
@@ -226,6 +259,46 @@ def ssd_inputs(B, L, H, P, N, dtype, rng):
     return xh, dt, A, randn((B, L, 1, N), dtype, rng), randn((B, L, 1, N), dtype, rng)
 
 
+def flash_rounded(name, instance, out, q, k, v, causal):
+    """A tensor-core result against ``attention_tiled(round_p=True)`` over
+    the instance's key tiles, its float32 result (``instances.check_rounded``:
+    4 bf16 ulps of each row's scale, 1.25 times the norm of that result's
+    own bf16 rounding); None for the CUDA-core instance."""
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels.instances import check_rounded
+
+    if instance != "tensor_core":
+        return None
+    want = tfa.ref.attention_tiled(q.float(), k.float(), v.float(), causal,
+                                   key_tile=tfa.TENSOR_CORE_KEY_TILE[q.shape[-1]],
+                                   round_p=True)
+    return check_rounded(name, out, want)
+
+
+def ssd_rounded(name, instance, y, state, args, chunk):
+    """A tensor-core result (y and the final state) against
+    ``ssd_passes(round_operands=True)``'s float32 result, as
+    :func:`flash_rounded`; None for the CUDA-core instance."""
+    from repro_torch.kernels import ssd as tssd
+    from repro_torch.kernels.instances import check_rounded
+
+    if instance != "tensor_core":
+        return None
+    xh, dt, A, Bm, Cm = args
+    want_y, want_st = tssd.ref.ssd_passes(xh.float(), dt, A, Bm.float(), Cm.float(),
+                                          chunk, round_operands=True)
+    return {"y": check_rounded(f"{name} y", y, want_y),
+            "state": check_rounded(f"{name} state", state, want_st)}
+
+
+def rounded_note(r) -> str:
+    if r is None:
+        return ""
+    parts = r.items() if "y" in r else [("", r)]
+    return "; vs rounding plain " + ", ".join(
+        f"{k + ' ' if k else ''}{v['ulps']:.2f} ulp x{v['norm_ratio']:.3f}" for k, v in parts)
+
+
 def serving_parity(conv, ssd_kernel, report) -> None:
     """Phase 3b: conv1d and SSD against their plain versions at ragged
     shapes (neither L nor C a multiple of the CTA tile; chunks that are
@@ -260,10 +333,13 @@ def serving_parity(conv, ssd_kernel, report) -> None:
                   f"{errs[0]:.2e} shuffle {errs[1]:.2e}, modes bitwise equal")
     for B, L, H, P, N, Q in [(2, 64, 4, 16, 16, 16), (1, 128, 2, 32, 64, 32),
                              (2, 96, 3, 8, 16, 32), (1, 64, 2, 16, 16, 64),
-                             (2, 768, 5, 64, 128, 256), (1, 384, 3, 12, 20, 96)]:
+                             (2, 768, 5, 64, 128, 256), (1, 384, 3, 12, 20, 96),
+                             (2, 512, 6, 64, 64, 64), (1, 768, 4, 64, 128, 192)]:
         for dname, dtype in dtypes.items():
             args = ssd_inputs(B, L, H, P, N, dtype, rng)
+            before = dict(ssd_kernel.instance_launches)
             y, st = ssd_kernel(*args, Q)
+            inst = [i for i, n in ssd_kernel.instance_launches.items() if n != before[i]]
             want_y, want_st = tssd.ref.ssd_chunked(*args, Q)
             torch.cuda.synchronize()
             tol = SSD_TOL[dname]
@@ -271,16 +347,29 @@ def serving_parity(conv, ssd_kernel, report) -> None:
             torch.testing.assert_close(st, want_st, rtol=tol, atol=tol)
             ey = float((y.float() - want_y.float()).abs().max())
             es = float((st - want_st).abs().max())
+            rounded = ssd_rounded(f"ssd {(B, L, H, P, N, Q)}", inst[0], y, st, args, Q)
             report["ssd_parity"].append({"shape": (B, L, H, P, N, Q), "dtype": dname,
-                                         "y_err": ey, "state_err": es})
-            print(f"[parity] ssd {(B, L, H, P, N, Q)} {dname:<8} max|err| y "
-                  f"{ey:.2e} state {es:.2e}")
+                                         "instance": inst, "y_err": ey, "state_err": es,
+                                         "rounded": rounded})
+            print(f"[parity] ssd {(B, L, H, P, N, Q)} {dname:<8} {inst[0]:<11} max|err| y "
+                  f"{ey:.2e} state {es:.2e}{rounded_note(rounded)}")
     args = ssd_inputs(1, 64, 2, 8, 16, torch.float32, rng)
     (one, s1), (many, s8) = ssd_kernel(*args, 64), ssd_kernel(*args, 8)
     torch.testing.assert_close(one, many, rtol=2e-4, atol=2e-4)
     torch.testing.assert_close(s1, s8, rtol=2e-4, atol=2e-4)
     print(f"[parity] ssd chunk 64 vs chunk 8: max|diff| y "
           f"{float((one - many).abs().max()):.2e} state {float((s1 - s8).abs().max()):.2e}")
+    # the tensor-core instance against itself across chunk sizes, bf16
+    args = ssd_inputs(2, 1024, 4, 64, 128, torch.bfloat16, rng)
+    (one, s1), (many, s4) = ssd_kernel(*args, 256), ssd_kernel(*args, 64)
+    tol = SSD_TOL["bfloat16"]
+    torch.testing.assert_close(one.float(), many.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(s1, s4, rtol=tol, atol=tol)
+    report["ssd_chunk_invariance_bf16"] = {"y": float((one.float() - many.float()).abs().max()),
+                                           "state": float((s1 - s4).abs().max())}
+    print(f"[parity] ssd tensor_core bf16 chunk 256 vs chunk 64: max|diff| y "
+          f"{report['ssd_chunk_invariance_bf16']['y']:.2e} state "
+          f"{report['ssd_chunk_invariance_bf16']['state']:.2e}")
 
 
 def flash_parity(fa_kernel, report) -> None:
@@ -297,16 +386,21 @@ def flash_parity(fa_kernel, report) -> None:
         for dname, dtype in dtypes.items():
             q = randn((B, Sq, H, Dh), dtype, rng)
             k, v = randn((B, Sk, KV, Dh), dtype, rng), randn((B, Sk, KV, Dh), dtype, rng)
+            before = dict(fa_kernel.instance_launches)
             out = fa_kernel(q, k, v, causal)
+            inst = [i for i, n in fa_kernel.instance_launches.items() if n != before[i]]
             want = tfa.ref.attention_ref(q, k, v, causal)
             torch.cuda.synchronize()
             tol = FLASH_TOL[dname]
             torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
             err = float((out.float() - want.float()).abs().max())
             shape = (B, Sq, Sk, H, KV, Dh, causal)
+            rounded = flash_rounded(f"flash_attention {shape}", inst[0], out, q, k, v, causal)
             report["flash_parity"].append({"shape": shape, "dtype": dname,
-                                           "max_abs_err": err})
-            print(f"[parity] flash_attention {shape} {dname:<8} max|err| {err:.2e}")
+                                           "instance": inst, "max_abs_err": err,
+                                           "rounded": rounded})
+            print(f"[parity] flash_attention {shape} {dname:<8} {inst[0]:<11} "
+                  f"max|err| {err:.2e}{rounded_note(rounded)}")
 
 
 def reduced_card_vs_cpu(report, arch: str) -> None:
@@ -337,6 +431,48 @@ def reduced_card_vs_cpu(report, arch: str) -> None:
     report["reduced_card_vs_cpu_err"] = err
     print(f"[serve] reduced {arch} ({rcfg.n_layers} layers) on the card vs plain on "
           f"the CPU: max|err| logits {err:.2e}, greedy tokens equal")
+
+
+def prefill_split(model, batch, arch: str) -> dict:
+    """Device time of one warm full-width prefill by kernel family, from a
+    ``torch.profiler`` trace (CUDA activity only), beside the prefill's
+    wall time measured without the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    families = (("ssd", ("ssd_tc::", "ssd::")), ("flash_attention", ("flash_tc::", "flash::")),
+                ("conv1d", ("conv1d_",)),
+                ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")))
+    model.prefill(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.prefill(batch)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            model.prefill(batch)
+            torch.cuda.synchronize()
+    split, other = {name: 0.0 for name, _ in families}, {}
+    for e in prof.key_averages():
+        if e.device_time_total <= 0:
+            continue
+        fam = next((name for name, keys in families
+                    if any(k in e.key for k in keys)), None)
+        if fam is None:
+            other[e.key[:60]] = e.device_time_total / 1e3
+        else:
+            split[fam] += e.device_time_total / 1e3
+    split["other"] = sum(other.values())
+    device_ms = sum(split.values())
+    top = dict(sorted(other.items(), key=lambda kv: -kv[1])[:5])
+    print(f"[trace] {arch} warm prefill: wall {wall_ms:.1f} ms, device busy "
+          f"{device_ms:.1f} ms ({100 * device_ms / wall_ms:.0f} %): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
+          + " ms; largest other: " + ", ".join(f"{k} {v:.2f}" for k, v in top.items()))
+    return {"wall_ms": wall_ms, "device_ms": device_ms, "by_family_ms": split,
+            "other_top_ms": top}
 
 
 def serve_run(report, arch: str, want: dict):
@@ -398,8 +534,8 @@ def serve_run(report, arch: str, want: dict):
         torch.cuda.synchronize()
     finally:
         m2.causal_conv1d, m2.ssd, attn.flash_attention = real
-    counts = {**tconv.launch_counts(), **tssd.launch_counts(),
-              **tfa.launch_counts(), **tstencil.launch_counts()}
+    counts = {**tconv.launch_counts(), **tssd.launch_counts(), **tssd.instance_counts(),
+              **tfa.launch_counts(), **tfa.instance_counts(), **tstencil.launch_counts()}
     if {k: counts.get(k) for k in want} != want or \
             any(n for k, n in counts.items() if k not in want):
         raise RuntimeError(f"serve {arch}: launches {counts}, expected {want}")
@@ -417,6 +553,7 @@ def serve_run(report, arch: str, want: dict):
             not np.array_equal(logits.argmax(-1).cpu().numpy(), tokens[:, 0]):
         raise RuntimeError(f"serve {arch}: prefill logits non-finite, misshapen "
                            "or not the first generated token")
+    report["prefill_split"] = prefill_split(model, batch, arch)
     del model, batch, logits
     report["serve"] = {k: v for k, v in out.items() if k != "tokens"}
     report["serve"]["launches"] = launches
@@ -498,6 +635,8 @@ def layer0_ssd(ssd_kernel, args, launches, report, entries, name) -> None:
     torch.testing.assert_close(st, want_st, rtol=tol, atol=tol)
     ey = float((y.float() - want_y.float()).abs().max())
     es = float((st - want_st).abs().max())
+    instance = tssd.select_instance(xh, Bm, Cm, Q)
+    rounded = ssd_rounded(f"ssd layer 0 ({name})", instance, y, st, args[:5], Q)
     item = xh.element_size()
     nbytes = (2 * xh.numel() * item + dt.numel() * 4 + A.numel() * 4
               + (Bm.numel() + Cm.numel()) * item + Bsz * H * N * P * 4)
@@ -505,36 +644,54 @@ def layer0_ssd(ssd_kernel, args, launches, report, entries, name) -> None:
     # (G = 1), and per head causal scores @ x, C @ state, the state update
     chunks = Bsz * (L // Q)
     flops = chunks * (Q * (Q + 1) * N + H * (Q * (Q + 1) * P + 4 * Q * N * P))
-    # what the kernel executes: C.B^T and scores @ x on every 64 x 64 tile
-    # pair on or below the diagonal, per head (Q a multiple of 64)
-    pairs = (Q // 64) * (Q // 64 + 1) // 2
-    kernel_flops = chunks * H * (pairs * 2 * 64 * 64 * (N + P) + 4 * Q * N * P)
+    # what the instance executes
+    T, nc = Q // 64, L // Q
+    if instance == "tensor_core":
+        # a: B^T (w x); b: C S_c as hi + lo for chunks c >= 1; c: C B^T for
+        # the tiles on and below the diagonal once per 8 heads, then per head
+        # the diagonal tile's scores @ x as hi + lo and C B^T (g x) below it
+        # as hi + lo
+        hs = 8 if H % 8 == 0 else 4 if H % 4 == 0 else 2 if H % 2 == 0 else 1
+        tile = 2 * 64 * 64
+        kernel_flops = Bsz * (nc * H * 2 * Q * N * P + (nc - 1) * H * 2 * 2 * Q * N * P
+                              + nc * (H // hs) * (T * (T + 1) // 2) * tile * N
+                              + nc * H * (T * 2 * tile * P + (T * (T - 1) // 2) * 2 * tile * P))
+    else:
+        # C.B^T and scores @ x on every 64 x 64 tile pair on or below the
+        # diagonal, per head (Q a multiple of 64)
+        kernel_flops = chunks * H * (T * (T + 1) // 2 * 2 * 64 * 64 * (N + P) + 4 * Q * N * P)
     # the Pallas kernel's: full Q x Q tiles, C.B^T per head
     pallas_flops = chunks * H * (2 * Q * Q * (N + P) + 4 * Q * N * P)
     peak = BF16_FLOPS if xh.dtype == torch.bfloat16 else F32_FLOPS
     bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
              "operations": flops / peak * 1e3}
     bound_by = max(bound, key=bound.get)
+    passes = kernel_times(lambda: ssd_kernel(xh, dt, A, Bm, Cm, Q))
+    if len(passes) != tssd.KERNELS_PER_CALL[instance]:
+        raise RuntimeError(f"ssd ({instance}): {len(passes)} CUDA kernels per call: {passes}")
     times = cold_ms({"kernel": lambda: ssd_kernel(xh, dt, A, Bm, Cm, Q),
                      "plain": lambda: tssd.ref.ssd_chunked(xh, dt, A, Bm, Cm, Q)}, 10)
     ms, plain_ms = times["kernel"], times["plain"]
     report["ssd_layer0"] = {
-        "shape": (Bsz, L, H, P, N, Q), "dtype": str(xh.dtype), "bytes": nbytes,
-        "flops": flops, "kernel_flops": kernel_flops, "pallas_flops": pallas_flops,
-        "bound_ms": bound[bound_by], "bound_by": bound_by,
-        "f32_core_ms": kernel_flops / F32_FLOPS * 1e3, "ms": ms, "plain_ms": plain_ms,
-        "y_err": ey, "state_err": es}
+        "shape": (Bsz, L, H, P, N, Q), "dtype": str(xh.dtype), "instance": instance,
+        "bytes": nbytes, "flops": flops, "kernel_flops": kernel_flops,
+        "pallas_flops": pallas_flops, "bound_ms": bound[bound_by], "bound_by": bound_by,
+        "ms": ms, "plain_ms": plain_ms, "kernels_per_call": len(passes),
+        "kernel_us_warm": passes, "y_err": ey, "state_err": es, "rounded": rounded}
     entries.append({"name": name, "route": "cuda", "source": SSD_SOURCE,
                     "replaces": SSD_REPLACES, "launches": launches["ssd"],
                     "max_abs_err": max(ey, es), "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound[bound_by], "bound_by": bound_by,
                     "library_ms": None})
-    print(f"[serve-kernel] ssd {(Bsz, L, H, P, N, Q)} {xh.dtype} {ms:.4f} ms, bound "
+    print(f"[serve-kernel] ssd {(Bsz, L, H, P, N, Q)} {xh.dtype} ({instance}, "
+          f"{len(passes)} CUDA kernels per call) {ms:.4f} ms, bound "
           f"{bound[bound_by]:.4f} ms ({bound_by}; needs {flops / 1e9:.2f} GFLOP, "
           f"{nbytes / 1e6:.1f} MB); executes {kernel_flops / 1e9:.2f} GFLOP "
-          f"(Pallas {pallas_flops / 1e9:.2f}) at {kernel_flops / ms / 1e9:.1f} TFLOP/s, "
-          f"f32 cores {kernel_flops / F32_FLOPS * 1e3:.3f} ms; plain {plain_ms:.3f} ms; "
-          f"max|err| y {ey:.2e} state {es:.2e}")
+          f"(Pallas {pallas_flops / 1e9:.2f}) at {kernel_flops / ms / 1e9:.1f} TFLOP/s; "
+          f"plain {plain_ms:.3f} ms; max|err| y {ey:.2e} state {es:.2e}"
+          f"{rounded_note(rounded)}")
+    print("[serve-kernel] ssd warm, per CUDA kernel: "
+          + ", ".join(f"{k.split('::')[-1]} {v:.1f} us" for k, v in passes.items()))
 
 
 def layer0_flash(fa_kernel, args, launches, report, entries) -> None:
@@ -556,6 +713,9 @@ def layer0_flash(fa_kernel, args, launches, report, entries) -> None:
     torch.cuda.synchronize()
     torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
     err = float((out.float() - want.float()).abs().max())
+    instance = tfa.select_instance(q, k, v)
+    rounded = flash_rounded("flash_attention, the first shared-attention call", instance,
+                            out, q, k, v, causal)
     G = H // KV
     qt = q.transpose(1, 2).contiguous()
     kt = k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
@@ -572,6 +732,14 @@ def layer0_flash(fa_kernel, args, launches, report, entries) -> None:
     # every (query, key) pair the mask keeps
     kept = (sum(min(i + 1, Sk) for i in range(Sq)) if causal else Sq * Sk)
     flops = B * H * kept * 4 * Dh
+    # what the instance executes: whole (query rows x key tile) score tiles
+    # up to the diagonal, 64 query rows per warpgroup (tensor cores) or per
+    # CTA (CUDA cores)
+    key_tile = tfa.TENSOR_CORE_KEY_TILE[Dh] if instance == "tensor_core" else tfa.KEY_TILE
+    n_k = -(-Sk // key_tile)
+    tiles = sum(min(n_k, (min(r0 + 64, Sq) - 1) // key_tile + 1) if causal else n_k
+                for r0 in range(0, Sq, 64))
+    kernel_flops = B * H * tiles * 64 * key_tile * 4 * Dh
     peak = BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
     bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
              "operations": flops / peak * 1e3}
@@ -582,19 +750,22 @@ def layer0_flash(fa_kernel, args, launches, report, entries) -> None:
     ms, plain_ms, library_ms = times["kernel"], times["plain"], times["library"]
     report["flash_layer0"] = {
         "shape": (B, Sq, Sk, H, KV, Dh, causal), "dtype": str(q.dtype),
-        "bytes": nbytes, "flops": flops, "bound_ms": bound[bound_by],
-        "bound_by": bound_by, "f32_core_ms": flops / F32_FLOPS * 1e3, "ms": ms,
-        "plain_ms": plain_ms, "library_ms": library_ms, "max_abs_err": err}
+        "instance": instance, "bytes": nbytes, "flops": flops,
+        "kernel_flops": kernel_flops, "bound_ms": bound[bound_by],
+        "bound_by": bound_by, "ms": ms, "plain_ms": plain_ms,
+        "library_ms": library_ms, "max_abs_err": err, "rounded": rounded}
     entries.append({"name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
                     "replaces": FLASH_REPLACES, "launches": launches["flash_attention"],
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound[bound_by], "bound_by": bound_by,
                     "library_ms": library_ms})
     print(f"[serve-kernel] flash_attention {(B, Sq, Sk, H, KV, Dh)} causal {causal} "
-          f"{q.dtype} {ms:.4f} ms, bound {bound[bound_by]:.4f} ms ({bound_by}; "
-          f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) at "
-          f"{flops / ms / 1e9:.1f} TFLOP/s; plain {plain_ms:.4f} ms; "
-          f"scaled_dot_product_attention {library_ms:.4f} ms; max|err| {err:.2e}")
+          f"{q.dtype} ({instance}) {ms:.4f} ms, bound {bound[bound_by]:.4f} ms ({bound_by}; "
+          f"{nbytes / 1e6:.1f} MB, needs {flops / 1e9:.2f} GFLOP, executes "
+          f"{kernel_flops / 1e9:.2f}) at {kernel_flops / ms / 1e9:.1f} TFLOP/s; "
+          f"plain {plain_ms:.4f} ms; "
+          f"scaled_dot_product_attention {library_ms:.4f} ms; max|err| {err:.2e}"
+          f"{rounded_note(rounded)}")
 
 
 def continuity(report, arch: str) -> None:
@@ -638,9 +809,13 @@ def serving_path(arch, kernels, report, entries) -> None:
     from repro_torch.configs import get_config
 
     cfg = get_config(arch)
-    want = {"conv1d_shuffle_w4": cfg.n_layers, "ssd": cfg.n_layers}
+    # every SSD and flash-attention call of the served run on its tensor-core
+    # instance, none on the CUDA-core one
+    want = {"conv1d_shuffle_w4": cfg.n_layers, "ssd": cfg.n_layers,
+            "ssd/tensor_core": cfg.n_layers}
     if cfg.family == "hybrid":
-        want["flash_attention"] = cfg.n_layers // cfg.attn_every
+        want["flash_attention"] = want["flash_attention/tensor_core"] = \
+            cfg.n_layers // cfg.attn_every
     tag = "" if arch == MAMBA else f"[{arch}]"
     rec = report.setdefault("serving", {}).setdefault(arch, {})
     reduced_card_vs_cpu(rec, arch)
@@ -665,7 +840,7 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
-    from repro_torch.build import nvcc_path
+    from repro_torch.build import nvcc_path, sass_counts
     from repro_torch.core.frontend.cuda_lower import synthesize_cuda
     from repro_torch.core.frontend.kernelgen import get_bench
     from repro_torch.kernels import conv1d as tconv
@@ -741,16 +916,18 @@ def main() -> int:
             print(f"[sass] {k.symbol:<18} {i:<7} SHFL {inst[i]['shfl']:>3} "
                   f"LDG {inst[i]['ldg']:>3}")
         report["sass"][k.symbol] = inst
-    ssd_sass = sass_instances(sass_counts(str(ssd_kernel.library.path)), "ssd_kernel")
-    for i, c in ssd_sass.items():
-        print(f"[sass] ssd_kernel         {i:<7} SHFL {c['shfl']:>3} LDG {c['ldg']:>3}")
-    report["sass"]["ssd_kernel"] = ssd_sass
-    fa_sass = sass_instances(sass_counts(str(fa_kernel.library.path)), "flash_kernel")
-    if len(fa_sass) != 2 * len(tfa.HEAD_DIMS):
-        raise RuntimeError(f"flash_kernel: {len(fa_sass)} template instances in the SASS")
-    for i, c in fa_sass.items():
-        print(f"[sass] flash_kernel       {i:<7} SHFL {c['shfl']:>3} LDG {c['ldg']:>3}")
-    report["sass"]["flash_kernel"] = fa_sass
+    ssd_counts = sass_counts(str(ssd_kernel.library.path))
+    ssd_tc = {f"{part.split('_')[0]} {i}": c
+              for part in ("states_kernel", "pass_kernel", "scan_kernel")
+              for i, c in tc_instances(ssd_counts, part).items()}
+    check_tensor_cores("ssd", ssd_tc, sass_instances(ssd_counts, "ssd_kernel"), report)
+    fa_counts = sass_counts(str(fa_kernel.library.path))
+    fa_sass = sass_instances(fa_counts, "flash_kernel")
+    fa_tc = tc_instances(fa_counts, "flash_wgmma_kernel")
+    if len(fa_sass) != 2 * len(tfa.HEAD_DIMS) or len(fa_tc) != len(tfa.TENSOR_CORE_HEAD_DIMS):
+        raise RuntimeError(f"flash: {len(fa_sass)} CUDA-core and {len(fa_tc)} tensor-core "
+                           f"template instances in the SASS")
+    check_tensor_cores("flash_attention", fa_tc, fa_sass, report)
 
     # -- 3. parity on the card at a ragged medium shape ------------------------
     for i, (name, b) in enumerate(benches.items()):

@@ -5,6 +5,7 @@ library with a plain C interface under ``build/repro_torch/``, named by
 the SHA-256 of everything that goes into it (the source, the headers it
 may include and the flags).  A library already on disk is loaded as it
 is; a library loaded once is kept for the life of the process.
+:func:`sass_counts` reads a built library's machine code.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -81,3 +83,25 @@ def build_library(source: str, include_dirs: Sequence[Path]) -> Library:
     lib = Library(ctypes.CDLL(str(so)), so, seconds)
     _LOADED[key] = lib
     return lib
+
+
+def sass_counts(so_path) -> Dict[str, Dict[str, int]]:
+    """Per kernel of a built library: its SHFL, LDG, HGMMA (warpgroup
+    tensor-core products) and HMMA (warp tensor-core products)
+    instructions, read from ``cuobjdump -sass``."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(so_path)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = {"shfl": 0, "ldg": 0, "hgmma": 0, "hmma": 0}
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+([^;]+);", line)
+        if fn and m:
+            op = m.group(1)
+            for name in counts[fn]:
+                counts[fn][name] += bool(re.search(rf"\b{name.upper()}\.", op))
+    return counts

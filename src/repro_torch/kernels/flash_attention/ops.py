@@ -8,7 +8,9 @@ against the key tile is refused (the reference asserts
 ``Sk % block_k == 0`` there; the port's key tile is :data:`KEY_TILE`).
 The reference pads Sq and Sk to its blocks; the kernel masks them
 instead.  A tensor on the CPU takes the plain version (:mod:`.ref`); a
-tensor on the card launches the kernel, built at first use, or raises.
+tensor on the card launches the kernel, built at first use, or raises:
+its bf16 tensor-core instance or its float32-arithmetic one, as
+:func:`select_instance` says.
 q, k and v may be views with any batch and position strides; each
 position's (heads, Dh) must be contiguous.
 """
@@ -22,9 +24,11 @@ from typing import Optional
 import torch
 
 from repro_torch.build import Library, build_library
+from ..instances import InstanceCounts, tma_ready
 from . import ref as attn_ref
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+COMMON_CSRC = Path(__file__).resolve().parents[1] / "csrc"     # hopper.cuh
 SOURCE = CSRC / "flash_attention.cu"
 
 #: rows of the kernel's query and key tiles (``kTile`` in the source)
@@ -32,7 +36,26 @@ KEY_TILE = 64
 #: the head dims the kernel is instantiated for
 HEAD_DIMS = (8, 16, 32, 64, 128)
 
+#: the head dims of the bf16 tensor-core instance, and the key tile it
+#: walks at each (``flash_tc::launch<Dh, kN>`` in the source)
+TENSOR_CORE_KEY_TILE = {16: 128, 32: 128, 64: 128, 128: 64}
+TENSOR_CORE_HEAD_DIMS = tuple(TENSOR_CORE_KEY_TILE)
+#: the kernel's instances: bf16 on the tensor cores (wgmma, TMA-fed tiles)
+#: and the float32-arithmetic instance on the CUDA cores (float32, and bf16
+#: where the tensor-core instance does not apply)
+INSTANCES = ("tensor_core", "cuda_core")
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def select_instance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The instance a call runs, from dtype, head dim and layout alone:
+    ``tensor_core`` for bf16 with Dh in :data:`TENSOR_CORE_HEAD_DIMS` and
+    operands a bulk tensor copy can read, else ``cuda_core``."""
+    if (q.dtype == torch.bfloat16 and q.shape[-1] in TENSOR_CORE_HEAD_DIMS
+            and all(tma_ready(t) for t in (q, k, v))):
+        return "tensor_core"
+    return "cuda_core"
 
 
 def check_contract(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -52,19 +75,25 @@ def check_contract(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"a multiple of the key tile {KEY_TILE}")
 
 
-class FlashAttentionKernel:
-    """The built kernel.  Calling it launches the kernel on the current
-    stream and adds one to ``launches``; nothing else touches the count."""
+class FlashAttentionKernel(InstanceCounts):
+    """The built kernel.  Calling it launches the instance that
+    :func:`select_instance` picks on the current stream and adds one to
+    ``launches`` and to that instance's count in ``instance_launches``;
+    nothing else touches the counts."""
 
     symbol = "flash_attention"
+    instances = INSTANCES
 
     def __init__(self, library: Library):
+        super().__init__()
         self.library = library
-        self.launches = 0
         self._fn = library.lib.launch_flash_attention
         self._fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
                              + [ctypes.c_void_p])
         self._fn.restype = ctypes.c_int
+        self._fn_tc = library.lib.launch_flash_attention_wgmma
+        self._fn_tc.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
+        self._fn_tc.restype = ctypes.c_int
 
     def __call__(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  causal: bool = True) -> torch.Tensor:
@@ -94,14 +123,18 @@ class FlashAttentionKernel:
         strides = (ctypes.c_longlong * 6)(q.stride(0), q.stride(1), k.stride(0),
                                           k.stride(1), v.stride(0), v.stride(1))
         dims = (ctypes.c_int * 6)(B, Sq, Sk, H, KV, Dh)
+        instance = select_instance(q, k, v)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides, dims)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = self._fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                          strides, dims, _DTYPE_CODE[q.dtype], int(causal), stream)
+            if instance == "tensor_core":
+                rc = self._fn_tc(*ptrs, int(causal), stream)
+            else:
+                rc = self._fn(*ptrs, _DTYPE_CODE[q.dtype], int(causal), stream)
         if rc != 0:
-            raise RuntimeError(f"flash_attention: kernel launch failed "
-                               f"(cudaError {rc})")
-        self.launches += 1
+            raise RuntimeError(f"flash_attention ({instance}): kernel launch "
+                               f"failed (cudaError {rc})")
+        self.count(instance)
         return out
 
 
@@ -112,7 +145,8 @@ def build_kernel() -> FlashAttentionKernel:
     """Build (once, with one ``nvcc`` call) and return the kernel."""
     global _KERNEL
     if _KERNEL is None:
-        _KERNEL = FlashAttentionKernel(build_library(SOURCE.read_text(), [CSRC]))
+        _KERNEL = FlashAttentionKernel(build_library(SOURCE.read_text(),
+                                                        [CSRC, COMMON_CSRC]))
     return _KERNEL
 
 
@@ -121,9 +155,15 @@ def launch_counts():
     return {} if _KERNEL is None else {_KERNEL.symbol: _KERNEL.launches}
 
 
+def instance_counts():
+    """Launches per instance since the last reset, keyed
+    ``flash_attention/<instance>`` ({} before the kernel is built)."""
+    return {} if _KERNEL is None else _KERNEL.instance_counts()
+
+
 def reset_launch_counts() -> None:
     if _KERNEL is not None:
-        _KERNEL.launches = 0
+        _KERNEL.reset()
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

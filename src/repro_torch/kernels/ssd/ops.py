@@ -4,7 +4,9 @@ of ``src/repro/kernels/ssd/ssd.py::ssd_pallas``).
 ``ssd`` returns ``(y, final_state)``: the Pallas kernel returns y only,
 but the serving path carries the final state into decode.  A tensor on
 the CPU takes the plain version (:mod:`.ref`); a tensor on the card
-launches the kernel, built at first use, or raises.  x, B and C may be
+launches the kernel, built at first use, or raises: its bf16 tensor-core
+instance (three CUDA kernels) or its float32-arithmetic one, as
+:func:`select_instance` says.  x, B and C may be
 views with any batch and position strides (the model passes slices of
 the conv output without copying them); their last dimensions must be
 contiguous.
@@ -19,30 +21,62 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.build import Library, build_library
+from ..instances import InstanceCounts, tma_ready
 from . import ref as ssd_ref
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+COMMON_CSRC = Path(__file__).resolve().parents[1] / "csrc"     # hopper.cuh
 SOURCE = CSRC / "ssd.cu"
 
 #: what the kernel takes (``kMaxQ``, ``kMaxN``, ``kMaxP`` in ``ssd.cu``)
 MAX_CHUNK, MAX_STATE, MAX_HEAD_DIM = 256, 128, 64
 
+#: the kernel's instances: bf16 on the tensor cores (three passes: chunk
+#: states, state passing, chunk scan) and the float32-arithmetic instance on
+#: the CUDA cores (float32, and bf16 shapes the first does not take)
+INSTANCES = ("tensor_core", "cuda_core")
+#: CUDA kernels one call of each instance launches
+KERNELS_PER_CALL = {"tensor_core": 3, "cuda_core": 1}
+#: state sizes the tensor-core instance takes (it also needs P 64 and a
+#: chunk that is a multiple of 64 up to 256)
+TENSOR_CORE_STATES = (64, 128)
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-class SSDKernel:
-    """The built kernel.  Calling it launches the kernel on the current
-    stream and adds one to ``launches``; nothing else touches the count."""
+def select_instance(xh: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                    chunk: int) -> str:
+    """The instance a call runs, from dtype, shape and layout alone:
+    ``tensor_core`` for bf16 with P 64, N in :data:`TENSOR_CORE_STATES`, a
+    chunk that is a multiple of 64 up to 256 and x, B, C that a bulk tensor
+    copy can read; else ``cuda_core``."""
+    if (xh.dtype == torch.bfloat16 and xh.shape[-1] == 64
+            and Bm.shape[-1] in TENSOR_CORE_STATES
+            and chunk % 64 == 0 and 64 <= chunk <= MAX_CHUNK
+            and all(tma_ready(t) for t in (xh, Bm, Cm))):
+        return "tensor_core"
+    return "cuda_core"
+
+
+class SSDKernel(InstanceCounts):
+    """The built kernel.  Calling it launches the instance that
+    :func:`select_instance` picks on the current stream and adds one to
+    ``launches`` and to that instance's count in ``instance_launches``;
+    nothing else touches the counts."""
 
     symbol = "ssd"
+    instances = INSTANCES
 
     def __init__(self, library: Library):
+        super().__init__()
         self.library = library
-        self.launches = 0
         self._fn = library.lib.launch_ssd
         self._fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int]
                              + [ctypes.c_void_p])
         self._fn.restype = ctypes.c_int
+        self._fn_tc = library.lib.launch_ssd_wgmma
+        self._fn_tc.argtypes = [ctypes.c_void_p] * 14
+        self._fn_tc.restype = ctypes.c_int
 
     def __call__(self, xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                  Bm: torch.Tensor, Cm: torch.Tensor, chunk: int
@@ -91,15 +125,27 @@ class SSDKernel:
             xh.stride(0), xh.stride(1), dt.stride(0), dt.stride(1),
             Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1))
         dims = (ctypes.c_int * 6)(B, L, H, P, N, chunk)
+        instance = select_instance(xh, Bm, Cm, chunk)
+        ptrs = (xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+                Cm.data_ptr(), y.data_ptr(), state.data_ptr())
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = self._fn(xh.data_ptr(), dt.data_ptr(), A.data_ptr(),
-                          Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(),
-                          state.data_ptr(), strides, dims,
-                          _DTYPE_CODE[xh.dtype], stream)
+            if instance == "tensor_core":
+                nc = L // chunk
+                cum, dtc = torch.empty((2, B, H, nc, chunk), dtype=torch.float32,
+                                       device=dev)
+                dS = torch.empty((B, nc, H, N, P), dtype=torch.float32, device=dev)
+                # the state's term of every chunk but the first, which has none
+                y_state = torch.empty((B, nc - 1, H, chunk, P), dtype=torch.float32,
+                                      device=dev)
+                rc = self._fn_tc(*ptrs, cum.data_ptr(), dtc.data_ptr(), dS.data_ptr(),
+                                 y_state.data_ptr(), strides, dims, stream)
+            else:
+                rc = self._fn(*ptrs, strides, dims, _DTYPE_CODE[xh.dtype], stream)
         if rc != 0:
-            raise RuntimeError(f"ssd: kernel launch failed (cudaError {rc})")
-        self.launches += 1
+            raise RuntimeError(f"ssd ({instance}): kernel launch failed "
+                               f"(cudaError {rc})")
+        self.count(instance)
         return y, state
 
 
@@ -110,7 +156,7 @@ def build_kernel() -> SSDKernel:
     """Build (once, with one ``nvcc`` call) and return the kernel."""
     global _KERNEL
     if _KERNEL is None:
-        _KERNEL = SSDKernel(build_library(SOURCE.read_text(), [CSRC]))
+        _KERNEL = SSDKernel(build_library(SOURCE.read_text(), [CSRC, COMMON_CSRC]))
     return _KERNEL
 
 
@@ -119,9 +165,16 @@ def launch_counts():
     return {} if _KERNEL is None else {_KERNEL.symbol: _KERNEL.launches}
 
 
+def instance_counts():
+    """Calls per instance since the last reset, keyed ``ssd/<instance>``
+    ({} before the kernel is built); a call of ``tensor_core`` launches
+    :data:`KERNELS_PER_CALL` CUDA kernels."""
+    return {} if _KERNEL is None else _KERNEL.instance_counts()
+
+
 def reset_launch_counts() -> None:
     if _KERNEL is not None:
-        _KERNEL.launches = 0
+        _KERNEL.reset()
 
 
 def ssd(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -70,3 +70,92 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         ys.append(y_intra + y_inter)
     y = torch.stack(ys, dim=1).reshape(Bsz, L, H, P)
     return y.to(xh.dtype), s
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bfloat16 (to nearest even), as float32."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _split(t: torch.Tensor) -> torch.Tensor:
+    """t as two bf16 MMA operands, hi + lo: about 16 significant bits."""
+    hi = _bf16(t)
+    return hi + _bf16(t - hi)
+
+
+def ssd_passes(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+               Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
+               round_operands: bool = False
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The SSD as three passes, in the order and factoring of the bf16
+    tensor-core instance:
+
+    a. chunk states: dS_c = B_c^T (w x_c), w_j = exp(total_c - cum_j) dt_j;
+    b. state passing: S_0 = 0, S_c = exp(total_{c-1}) S_{c-1} + dS_{c-1}
+       (float32), and the final state S_nc;
+    c. chunk scan, per 64-row tile I of a chunk (the whole chunk when it is
+       not a multiple of 64), with e = 64 I - 1 the row before the tile:
+       y_I = (C_I B_I^T * exp(cum_i - cum_j) dt_j, causal) x_I
+           + exp(cum_i - cum_e) (C_I B_<I^T) (g x_<I),
+             g_j = exp(cum_e - cum_j) dt_j
+           + exp(cum_i) C_I S_c.
+
+    With ``round_operands`` every float32 operand of a bf16 product is
+    rounded as the kernel rounds it: w x and g x to one bf16; the diagonal
+    tile's decayed scores, C_I B_<I^T and the entering state S_c to bf16
+    hi + lo.  Same arguments and results as :func:`ssd_chunked`; a plain
+    version used by no main path.
+    """
+    Bsz, L, H, P = xh.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if L % chunk:
+        raise ValueError(f"sequence length {L} is not a multiple of the "
+                         f"chunk {chunk}")
+    nc, Q, rep = L // chunk, chunk, H // G
+    T = 64 if Q % 64 == 0 else Q
+    f32 = torch.float32
+    rnd = _bf16 if round_operands else (lambda t: t)
+    op = _split if round_operands else (lambda t: t)
+    x = xh.to(f32).reshape(Bsz, nc, Q, H, P)
+    dtq = dt.to(f32).reshape(Bsz, nc, Q, H)
+    cum = torch.cumsum(dtq * A.to(f32), dim=2)                  # (B,nc,Q,H)
+    total = cum[:, :, -1]                                       # (B,nc,H)
+    Bh = torch.repeat_interleave(Bm.to(f32).reshape(Bsz, nc, Q, G, N), rep, dim=3)
+    Ch = torch.repeat_interleave(Cm.to(f32).reshape(Bsz, nc, Q, G, N), rep, dim=3)
+
+    # a. chunk states
+    w = torch.exp(total[:, :, None] - cum) * dtq                # (B,nc,Q,H)
+    dS = torch.einsum("bcqhn,bcqhp->bchnp", Bh, rnd(x * w[..., None]))
+
+    # b. state passing, float32
+    S = torch.zeros((Bsz, H, N, P), dtype=f32, device=xh.device)
+    entering = []
+    for c in range(nc):
+        entering.append(S)
+        S = torch.exp(total[:, c])[:, :, None, None] * S + dS[:, c]
+
+    # c. chunk scan, tile by tile; the mask before the exponential
+    mask = torch.tril(torch.ones((T, T), dtype=torch.bool, device=xh.device))[None, :, :, None]
+    ys = []
+    for c in range(nc):
+        S_c = op(entering[c])
+        for i0 in range(0, Q, T):
+            r = slice(i0, i0 + T)
+            ci = cum[:, c, r]                                   # (B,T,H)
+            diff = ci[:, :, None] - ci[:, None]                 # (B,Ti,Tj,H)
+            decay = torch.where(mask, torch.exp(torch.where(mask, diff, torch.zeros_like(diff))),
+                                torch.zeros_like(diff))
+            cb = torch.einsum("bihn,bjhn->bijh", Ch[:, c, r], Bh[:, c, r])
+            y = torch.einsum("bijh,bjhp->bihp", op(cb * decay * dtq[:, c, r][:, None]),
+                             x[:, c, r])
+            if i0:
+                ce = cum[:, c, i0 - 1]                          # (B,H)
+                g = torch.exp(ce[:, None] - cum[:, c, :i0]) * dtq[:, c, :i0]
+                cbo = torch.einsum("bihn,bjhn->bijh", Ch[:, c, r], Bh[:, c, :i0])
+                y = y + torch.exp(ci - ce[:, None])[..., None] * torch.einsum(
+                    "bijh,bjhp->bihp", op(cbo), rnd(g[..., None] * x[:, c, :i0]))
+            y = y + torch.exp(ci)[..., None] * torch.einsum("bihn,bhnp->bihp",
+                                                            Ch[:, c, r], S_c)
+            ys.append(y)
+    y = torch.stack(ys, dim=1).reshape(Bsz, L, H, P)
+    return y.to(xh.dtype), S

@@ -1,6 +1,7 @@
-"""The CUDA kernels on the card (stencil, conv1d, SSD, flash attention)
-and the Mamba-2 and Zamba2 serving paths, against their plain PyTorch
-versions.  Imports only torch
+"""The CUDA kernels on the card (stencil, conv1d, SSD, flash attention; the
+SSD and flash attention in both their instances, bf16 tensor cores and
+CUDA cores) and the Mamba-2 and Zamba2 serving paths, against their plain
+PyTorch versions.  Imports only torch
 and the port, so it runs where JAX is not installed:  PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 Every test here skips without a CUDA device."""
 
@@ -9,12 +10,14 @@ import pytest
 
 torch = pytest.importorskip("torch")  # the port's tests need PyTorch
 
+from repro_torch.build import sass_counts
 from repro_torch.configs import get_config, reduced
 from repro_torch.core.frontend.kernelgen import get_bench
 from repro_torch.interop import arrays_from_numpy
 from repro_torch.kernels import conv1d as tconv
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ssd as tssd
+from repro_torch.kernels.instances import check_rounded
 from repro_torch.models import build_model
 from repro_torch.kernels.stencil import (
     MODES,
@@ -171,24 +174,47 @@ def _ssd_inputs(B, L, H, P, N, dtype, seed):
     return xh, dt, A, _randn((B, L, 1, N), dtype, rng), _randn((B, L, 1, N), dtype, rng)
 
 
+def _ssd_rounded(y, state, xh, dt, A, Bm, Cm, chunk):
+    """A tensor-core result against the float32 result of the plain version
+    that rounds what the tensor cores round, at a few bf16 ulps of each
+    row's scale (``instances.check_rounded``)."""
+    want_y, want_state = tssd.ref.ssd_passes(xh.float(), dt, A, Bm.float(), Cm.float(),
+                                             chunk, round_operands=True)
+    check_rounded("ssd y", y, want_y)
+    check_rounded("ssd state", state, want_state)
+
+
 @pytest.mark.parametrize("shape", [(2, 64, 4, 16, 16, 16), (1, 128, 2, 32, 64, 32),
                                    (2, 96, 3, 8, 16, 32), (1, 64, 2, 16, 16, 64),
-                                   (2, 512, 3, 64, 128, 256), (1, 384, 2, 12, 20, 96)])
+                                   (2, 512, 3, 64, 128, 256), (1, 384, 2, 12, 20, 96),
+                                   (2, 512, 3, 64, 64, 64), (2, 512, 3, 64, 64, 256),
+                                   (1, 512, 4, 64, 128, 64), (1, 768, 5, 64, 128, 192)])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_ssd_kernel_matches_plain(card, shape, dtype):
     """y and the final state against the plain version, at the reference
-    test's shapes, the model's (P 64, N 128, chunk 256) and a ragged one."""
+    test's shapes, the model's (P 64, N 128, chunk 256), a ragged one, and
+    the tensor-core instance's (P 64, N 64 and 128, chunks 64 to 256 over
+    several chunks); each call on the instance the selection names, bf16 at
+    P 64 on the tensor cores, and there also held against the plain version
+    that rounds what it rounds."""
     B, L, H, P, N, Q = shape
     args = _ssd_inputs(B, L, H, P, N, DTYPES[dtype], sum(shape))
     k = tssd.build_kernel()
-    before = k.launches
+    instance = tssd.select_instance(args[0], args[3], args[4], Q)
+    assert (instance == "tensor_core") == (dtype == "bfloat16" and P == 64 and Q % 64 == 0
+                                           and N in (64, 128))
+    before, before_i = k.launches, dict(k.instance_launches)
     y, state = tssd.ssd(*args, chunk=Q)
     torch.cuda.synchronize()
     assert k.launches == before + 1
+    assert {i: n - before_i[i] for i, n in k.instance_launches.items()} == {
+        i: int(i == instance) for i in tssd.INSTANCES}
     want_y, want_state = tssd.ref.ssd_chunked(*args, chunk=Q)
     tol = SSD_TOL[dtype]
     torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(state, want_state, rtol=tol, atol=tol)
+    if instance == "tensor_core":
+        _ssd_rounded(y, state, *args, Q)
 
 
 def test_ssd_kernel_chunk_8_equals_64(card):
@@ -197,6 +223,40 @@ def test_ssd_kernel_chunk_8_equals_64(card):
     many, s_many = tssd.ssd(*args, chunk=8)
     torch.testing.assert_close(one, many, rtol=2e-4, atol=2e-4)
     torch.testing.assert_close(s_one, s_many, rtol=2e-4, atol=2e-4)
+
+
+def test_ssd_tensor_core_chunk_64_equals_256(card):
+    """The tensor-core instance, bf16: chunk 64 against chunk 256 (more
+    passes of state, other tiles) within the reference's bf16 tolerance."""
+    args = _ssd_inputs(2, 1024, 4, 64, 128, torch.bfloat16, 8)
+    k = tssd.build_kernel()
+    before = k.instance_launches["tensor_core"]
+    one, s_one = tssd.ssd(*args, chunk=256)
+    many, s_many = tssd.ssd(*args, chunk=64)
+    torch.cuda.synchronize()
+    assert k.instance_launches["tensor_core"] == before + 2
+    tol = SSD_TOL["bfloat16"]
+    torch.testing.assert_close(one.float(), many.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(s_one, s_many, rtol=tol, atol=tol)
+
+
+def test_ssd_tensor_core_takes_strided_views(card):
+    """x, B and C as slices of one conv output, as the model passes them,
+    through the tensor-core instance."""
+    rng = np.random.default_rng(9)
+    B, L, H, N = 2, 512, 4, 128
+    conv = _randn((B, L, H * 64 + 2 * N), torch.bfloat16, rng)
+    xh, Bm, Cm = torch.split(conv, [H * 64, N, N], dim=-1)
+    xh, Bm, Cm = xh.view(B, L, H, 64), Bm.view(B, L, 1, N), Cm.view(B, L, 1, N)
+    _, dt, A, _, _ = _ssd_inputs(B, L, H, 64, N, torch.bfloat16, 9)
+    assert not xh.is_contiguous()
+    assert tssd.select_instance(xh, Bm, Cm, 256) == "tensor_core"
+    y, state = tssd.ssd(xh, dt, A, Bm, Cm, chunk=256)
+    want_y, want_state = tssd.ref.ssd_chunked(xh, dt, A, Bm, Cm, chunk=256)
+    tol = SSD_TOL["bfloat16"]
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(state, want_state, rtol=tol, atol=tol)
+    _ssd_rounded(y, state, xh, dt, A, Bm, Cm, 256)
 
 
 def test_ssd_wrapper_rejects_bad_inputs(card):
@@ -249,11 +309,25 @@ def test_mamba2_prefill_on_card_matches_plain(card):
 
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 6e-2}    # the reference's
 # (B, Sq, Sk, H, KV, Dh, causal): the reference test's five shapes, Sq
-# above a ragged Sk, GQA with Dh 128, and the serving shape
+# above a ragged Sk, GQA with Dh 128, ragged Sq and Sk at Dh 64 and (GQA)
+# 128, and the serving shape
 FLASH_SHAPES = [(2, 64, 64, 4, 2, 16, True), (1, 100, 100, 4, 4, 8, True),
                 (2, 64, 64, 8, 2, 16, False), (1, 33, 33, 2, 1, 32, True),
                 (2, 48, 96, 4, 1, 16, True), (1, 40, 20, 2, 1, 8, True),
-                (2, 200, 200, 8, 2, 128, True), (4, 1024, 1024, 32, 32, 64, True)]
+                (2, 200, 200, 8, 2, 128, True), (1, 300, 177, 4, 2, 64, True),
+                (2, 130, 250, 8, 2, 128, True), (1, 70, 128, 4, 1, 64, False),
+                (4, 1024, 1024, 32, 32, 64, True)]
+
+
+def _flash_rounded(out, q, k, v, causal=True):
+    """A tensor-core result against the float32 result of the plain version
+    that rounds P as the kernel does, over its key tiles, at a few bf16 ulps
+    of each row's scale (``instances.check_rounded``): the reference's 6e-2
+    is as large as |o| itself at long sequences."""
+    want = tfa.ref.attention_tiled(q.float(), k.float(), v.float(), causal,
+                                   key_tile=tfa.TENSOR_CORE_KEY_TILE[q.shape[-1]],
+                                   round_p=True)
+    check_rounded("flash_attention", out, want)
 
 
 def _qkv(B, Sq, Sk, H, KV, Dh, dtype, seed):
@@ -268,14 +342,20 @@ def test_flash_attention_matches_plain(card, shape, dtype):
     B, Sq, Sk, H, KV, Dh, causal = shape
     q, k, v = _qkv(B, Sq, Sk, H, KV, Dh, DTYPES[dtype], sum(shape))
     kernel = tfa.build_kernel()
-    before = kernel.launches
+    instance = tfa.select_instance(q, k, v)
+    assert (instance == "tensor_core") == (dtype == "bfloat16" and Dh >= 16)
+    before, before_i = kernel.launches, dict(kernel.instance_launches)
     out = tfa.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
+    assert {i: n - before_i[i] for i, n in kernel.instance_launches.items()} == {
+        i: int(i == instance) for i in tfa.INSTANCES}
     assert out.dtype == q.dtype and tuple(out.shape) == (B, Sq, H, Dh)
     want = tfa.ref.attention_ref(q, k, v, causal)
     tol = FLASH_TOL[dtype]
     torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    if instance == "tensor_core":
+        _flash_rounded(out, q, k, v, causal)
 
 
 def test_flash_attention_takes_strided_positions(card):
@@ -287,6 +367,32 @@ def test_flash_attention_takes_strided_positions(card):
     out = tfa.flash_attention(qs, ks, vs)
     want = tfa.ref.attention_ref(qs, ks, vs)
     torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
+
+
+def test_flash_tensor_core_takes_strided_positions(card):
+    """The same slices in bf16, through the tensor-core instance."""
+    q, k, v = _qkv(3, 200, 200, 4, 2, 64, torch.bfloat16, 5)
+    qs, ks, vs = q[::2, 10:], k[::2, 10:], v[::2, 10:]
+    assert tfa.select_instance(qs, ks, vs) == "tensor_core"
+    out = tfa.flash_attention(qs, ks, vs)
+    want = tfa.ref.attention_ref(qs, ks, vs)
+    tol = FLASH_TOL["bfloat16"]
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    _flash_rounded(out, qs, ks, vs)
+
+
+def test_tensor_core_instances_carry_hgmma(card):
+    """Every kernel of the tensor-core instances runs wgmma (HGMMA in the
+    SASS); the CUDA-core instances run none."""
+    for kernel, tc, simt in ((tfa.build_kernel(), ("flash_wgmma_kernel",), "flash_kernel"),
+                             (tssd.build_kernel(), ("states_kernel", "pass_kernel",
+                                                    "scan_kernel"), "ssd_kernel")):
+        counts = {f: c["hgmma"] for f, c in sass_counts(kernel.library.path).items()}
+        for name in tc:
+            found = {f: n for f, n in counts.items() if name in f}
+            assert found and all(found.values()), (name, found)
+        found = {f: n for f, n in counts.items() if simt in f}
+        assert found and not any(found.values()), (simt, found)
 
 
 def test_flash_wrapper_rejects_bad_inputs(card):

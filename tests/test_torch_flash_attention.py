@@ -114,3 +114,89 @@ def test_cpu_path_launches_nothing():
     out = tfa.flash_attention(q, k, v)
     assert torch.equal(out, tfa.ref.attention_ref(q, k, v))
     assert tfa.launch_counts() == before
+
+
+# The bf16 tensor-core instance on the card walks its own key tiles and
+# rounds P to bf16 before P V; its plain version here does the same.
+TC_SHAPES = [s for s in SHAPES if s[5] in tfa.TENSOR_CORE_HEAD_DIMS] + [
+    (1, 40, 20, 2, 1, 16, True), (2, 200, 200, 8, 2, 128, True), (1, 130, 250, 4, 1, 64, True)]
+
+
+@pytest.mark.parametrize("shape", TC_SHAPES)
+def test_tensor_core_numerics_match_oracle_and_pallas(shape):
+    """The tensor-core instance's plain version (its key tile, P rounded to
+    bf16) against the JAX oracle and the Pallas kernel in interpret mode, in
+    bf16 at the reference's 6e-2; its algebra in float32 at 2e-5.  The
+    Pallas kernel is left out where Sq exceeds a ragged Sk (it pads keys
+    that its causal mask lets in; see the test above)."""
+    B, Sq, Sk, H, KV, Dh, causal = shape
+    tile = tfa.TENSOR_CORE_KEY_TILE[Dh]
+    (jq, jk, jv), (q, k, v) = _inputs(B, Sq, Sk, H, KV, Dh, "bfloat16", seed=sum(shape))
+    out = tfa.ref.attention_tiled(q, k, v, causal, key_tile=tile, round_p=True)
+    assert out.dtype == q.dtype and tuple(out.shape) == (B, Sq, H, Dh)
+    wants = [jax_attention_ref(jq, jk, jv, causal=causal)]
+    if Sq <= Sk:
+        wants.append(jax_flash_attention(jq, jk, jv, causal=causal, block_q=16, block_k=16))
+    for want in wants:
+        _close(out, want, TOL["bfloat16"])
+    (jq, jk, jv), (q, k, v) = _inputs(B, Sq, Sk, H, KV, Dh, "float32", seed=sum(shape))
+    _close(tfa.ref.attention_tiled(q, k, v, causal, key_tile=tile),
+           jax_attention_ref(jq, jk, jv, causal=causal), TOL["float32"])
+
+
+def test_instance_selection():
+    """bf16 with Dh 16-128 and operands a bulk tensor copy can read take the
+    tensor cores; float32, Dh 8, and unaligned layouts the CUDA cores."""
+    def t(shape, dtype=torch.bfloat16):
+        return torch.zeros(shape, dtype=dtype)
+
+    for Dh in (16, 32, 64, 128):
+        q, kv = t((2, 8, 4, Dh)), t((2, 8, 2, Dh))
+        assert tfa.select_instance(q, kv, kv) == "tensor_core"
+        assert tfa.select_instance(q.float(), kv.float(), kv.float()) == "cuda_core"
+    q8, kv8 = t((2, 8, 4, 8)), t((2, 8, 2, 8))
+    assert tfa.select_instance(q8, kv8, kv8) == "cuda_core"
+    q, kv = t((2, 8, 4, 64)), t((2, 8, 2, 64))
+    assert tfa.select_instance(q[:, 2:], kv[:, 2:], kv[:, 2:]) == "tensor_core"
+    buf = t((2 * 8 * 260 + 4,))
+    odd = buf.as_strided((2, 8, 4, 64), (8 * 260, 260, 64, 1))      # 520-byte rows
+    assert tfa.select_instance(odd, kv, kv) == "cuda_core"
+    shifted = buf[4:4 + q.numel()].view(q.shape)                    # 8-byte offset
+    assert tfa.select_instance(shifted, kv, kv) == "cuda_core"
+
+
+def test_rounded_check_fails_a_fault_the_reference_tolerance_passes():
+    """At a long causal sequence |o| is about 0.05-0.15, so the reference's
+    bf16 tolerance (6e-2) passes an output whose later rows are 10 % off.
+    The card's tight check of the tensor-core instance
+    (``instances.check_rounded`` against ``attention_tiled(round_p=True)``'s
+    float32 result) fails it and passes that version's own bf16 result."""
+    from repro_torch.kernels.instances import ROUNDED_ULPS, check_rounded, rounded_agreement
+
+    _, (q, k, v) = _inputs(1, 512, 512, 4, 4, 64, "bfloat16", seed=19)
+    want = tfa.ref.attention_tiled(q.float(), k.float(), v.float(), True,
+                                   key_tile=tfa.TENSOR_CORE_KEY_TILE[64], round_p=True)
+    r = check_rounded("rounded", want.to(torch.bfloat16), want)
+    assert r["norm_ratio"] == 1.0 and r["ulps"] <= 0.5
+    bad = want.clone()
+    bad[:, 256:] *= 1.1
+    bad = bad.to(torch.bfloat16)
+    ref = tfa.ref.attention_ref(q, k, v)
+    torch.testing.assert_close(bad.float(), ref.float(), rtol=TOL["bfloat16"],
+                               atol=TOL["bfloat16"])
+    assert rounded_agreement(bad, want)["ulps"] > 2 * ROUNDED_ULPS
+    with pytest.raises(AssertionError, match="bf16 ulps"):
+        check_rounded("late rows 10 % off", bad, want)
+
+
+def test_rounded_agreement_counts_bf16_ulps():
+    """Errors in bf16 ulps (8 significant bits) of max(|x|, its row's rms)."""
+    from repro_torch.kernels.instances import rounded_agreement
+
+    want = torch.tensor([[1.0, -1.0, 1.0, -1.0], [4.0, 0.0, 0.0, 0.0]])
+    # row 1: |x| = rms = 1; row 2: rms 2, so the zeros are measured at 2
+    ulp = torch.tensor([[2.0 ** -7] * 4, [2.0 ** -5, 2.0 ** -6, 2.0 ** -6, 2.0 ** -6]])
+    for n in (1.0, 3.0):
+        assert rounded_agreement(want + n * ulp, want)["ulps"] == pytest.approx(n)
+    assert rounded_agreement(want + 0.5 * ulp[:, :1], want)["ulps"] == pytest.approx(1.0)
+    assert rounded_agreement(want, want) == {"ulps": 0.0, "norm_ratio": 0.0}

@@ -93,3 +93,93 @@ def test_chunk_must_divide_the_sequence():
     _, tx = _inputs(1, 24, 2, 4, 8, np.float32, seed=6)
     with pytest.raises(ValueError, match="multiple of the chunk"):
         tssd.ssd(*_args(tx), chunk=16)
+
+
+# The bf16 tensor-core instance on the card splits the scan into three
+# passes (chunk states, state passing, chunk scan) and rounds each float32
+# operand of a bf16 product; its plain version here does the same.
+TC_SHAPES = SHAPES + [(1, 256, 2, 64, 64, 64), (1, 512, 2, 64, 128, 256)]
+
+
+@pytest.mark.parametrize("shape", TC_SHAPES)
+def test_three_passes_match_pallas_and_oracle(shape):
+    """The three-pass split in float32, unrounded: y against the Pallas
+    kernel (interpret mode) and its oracle, the final state against
+    ``ssd_chunked``, at the reference's 1e-4."""
+    B, L, H, P, N, Q = shape
+    jx, tx = _inputs(B, L, H, P, N, np.float32, seed=11 + sum(shape))
+    y, state = tssd.ref.ssd_passes(*_args(tx), chunk=Q)
+    for want in (ssd_pallas(*_args(jx), chunk=Q), ssd_ref(*_args(jx), chunk=Q)):
+        np.testing.assert_allclose(y.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+    _, want_state = jax_ssd_chunked(*_args(jx), Q)
+    np.testing.assert_allclose(state.numpy(), np.asarray(want_state), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("shape", TC_SHAPES)
+def test_tensor_core_numerics_match_pallas_and_oracle(shape):
+    """The three passes with every operand rounded as the tensor-core
+    instance rounds it (w x and g x to bf16; the diagonal scores, C B^T
+    below the diagonal and the entering state to bf16 hi + lo), in bf16:
+    y against the Pallas kernel and its oracle, the final state against
+    ``ssd_chunked``, at the reference's 8e-2."""
+    B, L, H, P, N, Q = shape
+    jx, tx = _inputs(B, L, H, P, N, "bfloat16", seed=13 + sum(shape))
+    y, state = tssd.ref.ssd_passes(*_args(tx), chunk=Q, round_operands=True)
+    assert y.dtype == torch.bfloat16 and state.dtype == torch.float32
+    for want in (ssd_pallas(*_args(jx), chunk=Q), ssd_ref(*_args(jx), chunk=Q)):
+        np.testing.assert_allclose(y.float().numpy(), np.asarray(want, np.float32),
+                                   rtol=8e-2, atol=8e-2)
+    _, want_state = jax_ssd_chunked(*_args(jx), Q)
+    np.testing.assert_allclose(state.numpy(), np.asarray(want_state, np.float32),
+                               rtol=8e-2, atol=8e-2)
+
+
+def test_instance_selection():
+    """bf16 with P 64, N 64 or 128, a chunk that is a multiple of 64 up to
+    256 and aligned x, B, C take the tensor cores; the rest the CUDA cores."""
+    def t(shape, dtype=torch.bfloat16):
+        return torch.zeros(shape, dtype=dtype)
+
+    xh = t((2, 512, 4, 64))
+    for N in (64, 128):
+        Bm = t((2, 512, 1, N))
+        for chunk in (64, 128, 192, 256):
+            assert tssd.select_instance(xh, Bm, Bm, chunk) == "tensor_core"
+        for chunk in (32, 96, 512):
+            assert tssd.select_instance(xh, Bm, Bm, chunk) == "cuda_core"
+        assert tssd.select_instance(xh.float(), Bm.float(), Bm.float(), 256) == "cuda_core"
+    assert tssd.select_instance(xh, t((2, 512, 1, 32)), t((2, 512, 1, 32)), 256) == "cuda_core"
+    assert tssd.select_instance(t((2, 512, 4, 32)), t((2, 512, 1, 128)),
+                                t((2, 512, 1, 128)), 256) == "cuda_core"
+    # x, B and C as slices of one projection, as the model passes them
+    conv = t((2, 512, 4 * 64 + 2 * 128))
+    x_v = conv[..., :256].view(2, 512, 4, 64)
+    B_v = conv[..., 256:384].view(2, 512, 1, 128)
+    C_v = conv[..., 384:].view(2, 512, 1, 128)
+    assert tssd.select_instance(x_v, B_v, C_v, 256) == "tensor_core"
+    odd = t((2, 512, 1, 132))[..., 4:]                  # 8-byte offset
+    assert tssd.select_instance(xh, odd, odd, 256) == "cuda_core"
+
+
+def test_rounded_check_sees_a_dropped_lo_half(monkeypatch):
+    """The card's tight check of the tensor-core instance
+    (``instances.check_rounded`` against ``ssd_passes(round_operands=True)``'s
+    float32 result) passes that version's own bf16 result and the unrounded
+    plain version, and fails a version that drops the lo half of the
+    operands the instance splits into bf16 hi + lo: an error below the
+    reference's 8e-2 at |y| of up to about 25."""
+    from repro_torch.kernels.instances import check_rounded
+
+    _, tx = _inputs(1, 512, 4, 64, 128, "bfloat16", seed=17)
+    x, dt, A, Bm, Cm = _args(tx)
+    want_y, want_state = tssd.ref.ssd_passes(x.float(), dt, A, Bm.float(), Cm.float(),
+                                             256, round_operands=True)
+    assert check_rounded("rounded", want_y.to(torch.bfloat16), want_y)["norm_ratio"] == 1.0
+    y, state = tssd.ref.ssd_chunked(x, dt, A, Bm, Cm, 256)
+    check_rounded("unrounded y", y, want_y)
+    check_rounded("unrounded state", state, want_state)
+    monkeypatch.setattr(tssd.ref, "_split", tssd.ref._bf16)
+    y, _ = tssd.ref.ssd_passes(x, dt, A, Bm, Cm, 256, round_operands=True)
+    np.testing.assert_allclose(y.float().numpy(), want_y.numpy(), rtol=8e-2, atol=8e-2)
+    with pytest.raises(AssertionError, match="bf16 ulps"):
+        check_rounded("hi only", y, want_y)
