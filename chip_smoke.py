@@ -4,18 +4,22 @@
 Phases, each fatal on failure:
 
 1. toolchain: torch, CUDA, device capability, nvcc, card and power limit;
-2. build: every (KernelGen stencil bench, mode) kernel in one nvcc call,
-   and, at the same time, the conv1d kernels (naive / shuffle, widths 3
+2. build: every (KernelGen stencil bench, mode) kernel, one nvcc call per
+   bench, and, at the same time, the conv1d kernels (naive / shuffle, widths 3
    and 4, float32 and bfloat16), the SSD kernels (the bf16 tensor-core
    instance's three passes and the CUDA-core instance) and the
    flash-attention kernels (the bf16 tensor-core instance at Dh 16-128,
    the CUDA-core one at Dh 8-128 in float32 and bfloat16), each source in
    an nvcc call of its own; then ``SHFL``/``LDG``/``HGMMA``/``HMMA``
    instructions counted per kernel in the built SASS (``HGMMA`` in every
-   tensor-core instance, in no CUDA-core one);
+   tensor-core instance, in no CUDA-core one), and per stencil kernel its
+   registers and its SASS by class (integer, float, shared memory,
+   barriers) per output;
 3. parity: per stencil bench, the shuffle plan (emulator detection vs
    schedule) and each mode's kernel against the plain PyTorch version at
-   a ragged medium shape, the three modes bitwise equal; conv1d (both
+   a ragged medium shape and at shapes ragged along the march (1, R - 1,
+   R + 1 outputs) and along i (31, 33, 77 lanes), the three modes bitwise
+   equal; conv1d (both
    modes, bitwise equal) and SSD (y and final state; chunk 8 vs 64, and
    the tensor-core instance's chunk 64 vs 256 in bf16) against their
    plain versions at ragged shapes; flash attention against its plain
@@ -26,8 +30,9 @@ Phases, each fatal on failure:
    tricubic 512x1024x1024): DSL program -> PTX -> symbolic emulation ->
    shuffle detection -> ``stencil_apply`` in every mode, with launch
    counts read around it; then each kernel timed with CUDA events against
-   its bound, the plain version, a copy of the same bytes and (Jacobi)
-   ``conv2d``;
+   its bound, the plain version, a copy of the same bytes and ``conv2d``
+   (Jacobi) or ``conv3d`` of the separable weights plus u + v + s
+   (tricubic);
 5. the serving path: mamba2-1.3b at its published widths (bf16, random
    weights from a seed) serves 4 requests x 1024-token prompts x 32
    greedy tokens through ``repro_torch.launch.serve``, with launch counts
@@ -82,6 +87,7 @@ STENCIL_BENCHES = ["jacobi", "gaussblur", "laplacian", "wave13pt",
                    "whispering", "gradient", "divergence", "gameoflife",
                    "lapgsrb", "uxx1", "tricubic", "sincos", "vecadd"]
 REPLACES = "src/repro/kernels/stencil/stencil.py:141"
+SASS_PER_OUTPUT = ("ldg", "shfl", "int", "float", "lds_sts", "bar", "total")
 SOURCE = "src/repro_torch/kernels/stencil/csrc/stencil_common.cuh"
 CONV_REPLACES = "src/repro/kernels/conv1d/conv1d.py:31"
 CONV_SOURCE = "src/repro_torch/kernels/conv1d/csrc/conv1d_common.cuh"
@@ -159,6 +165,16 @@ def inputs(prog, shape, seed, device):
             del host
     scalars = {s: float(rng.uniform(0.1, 1.0)) for s in prog.scalars}
     return arrays, scalars
+
+
+def ragged_shapes(prog, steps: int) -> list:
+    """Full shapes whose interior is ragged along the march (1, R - 1 and
+    R + 1 outputs; j 11 in 3-D) and along i (31, 33 and 77 lanes)."""
+    halo = tuple(reversed(prog.halo))
+    interiors = {1: [(31,), (33,), (77,)],
+                 2: [(1, 31), (steps - 1, 33), (steps + 1, 77)],
+                 3: [(1, 11, 31), (steps - 1, 11, 33), (steps + 1, 11, 77)]}
+    return [tuple(n + 2 * h for n, h in zip(m, halo)) for m in interiors[prog.ndim]]
 
 
 def flops_per_point(expr) -> int:
@@ -840,14 +856,14 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
-    from repro_torch.build import nvcc_path, sass_counts
+    from repro_torch.build import nvcc_path, register_counts, sass_counts
     from repro_torch.core.frontend.cuda_lower import synthesize_cuda
     from repro_torch.core.frontend.kernelgen import get_bench
     from repro_torch.kernels import conv1d as tconv
     from repro_torch.kernels import flash_attention as tfa
     from repro_torch.kernels import ssd as tssd
     from repro_torch.kernels.stencil import (
-        MODES, build_kernels, launch_counts, reference,
+        MARCH, MODES, build_kernels, launch_counts, reference,
         reset_launch_counts, stencil_apply, traffic_report,
     )
 
@@ -881,16 +897,25 @@ def main() -> int:
         ssd_kernel = ssd_job.result()
         fa_kernel = fa_job.result()
     build_s = time.perf_counter() - t0
-    lib = next(iter(kernels.values())).library
-    print(f"[build] {len(kernels)} kernels, one nvcc call: {lib.seconds:.1f} s "
-          f"compile, {build_s:.1f} s with emulation -> {os.path.relpath(lib.path, ROOT)}")
-    sass = sass_counts(str(lib.path))
+    libs = {str(k.library.path): k.library for k in kernels.values()}
+    print(f"[build] {len(kernels)} kernels, {len(libs)} nvcc calls (one per bench) "
+          f"together: the longest {max(lib.seconds for lib in libs.values()):.1f} s, "
+          f"{build_s:.1f} s with emulation -> build/repro_torch/")
+    sass, regs = {}, {}
+    for path in libs:
+        sass.update(sass_counts(path))
+        regs.update(register_counts(path))
     for (name, mode), k in kernels.items():
         if k.symbol not in sass:
             raise RuntimeError(f"{k.symbol} missing from the SASS")
         c = sass[k.symbol]
-        print(f"[sass] {name:<11} {mode:<5} SHFL {c['shfl']:>3} LDG {c['ldg']:>3}")
-        report["sass"][f"{name}/{mode}"] = c
+        # static counts over the march's R outputs; naive and paper hold the
+        # march twice (full warps, the edge warp), tile once
+        per = {cls: c[cls] / k.spec.steps for cls in SASS_PER_OUTPUT}
+        print(f"[sass] {name:<11} {mode:<5} regs {regs[k.symbol]['regs']:>3} "
+              f"spill {regs[k.symbol]['local']} | per output: "
+              + " ".join(f"{cls} {v:.1f}" for cls, v in per.items()))
+        report["sass"][f"{name}/{mode}"] = dict(c, per_output=per, **regs[k.symbol])
     for name, b in benches.items():
         n_pairs = synthesize_cuda(b.program, b.max_delta).n_shuffles
         if sass[kernels[(name, "naive")].symbol]["shfl"] != 0:
@@ -929,14 +954,10 @@ def main() -> int:
                            f"template instances in the SASS")
     check_tensor_cores("flash_attention", fa_tc, fa_sass, report)
 
-    # -- 3. parity on the card at a ragged medium shape ------------------------
-    for i, (name, b) in enumerate(benches.items()):
-        prog = b.program
-        plan = synthesize_cuda(prog, b.max_delta)
-        if not plan.consistent:
-            raise RuntimeError(f"{name}: schedule inconsistent with detection")
-        shape = MEDIUM[prog.ndim]
-        xs, sc = inputs(prog, shape, SEED + i, dev)
+    # -- 3. parity on the card at a ragged medium shape and at shapes ragged
+    #       along the march and along i ------------------------------------------
+    def stencil_parity(name, prog, shape, seed):
+        xs, sc = inputs(prog, shape, seed, dev)
         want = reference(prog, xs, sc)
         outs, errs = [], {}
         for mode in MODES:
@@ -950,15 +971,26 @@ def main() -> int:
             errs[mode] = float((out - want).abs().max())
             outs.append(out)
         if not all(torch.equal(outs[0], o) for o in outs[1:]):
-            raise RuntimeError(f"{name}: modes are not bitwise equal")
+            raise RuntimeError(f"{name}: modes are not bitwise equal at {shape}")
+        return errs
+
+    for i, (name, b) in enumerate(benches.items()):
+        prog = b.program
+        plan = synthesize_cuda(prog, b.max_delta)
+        if not plan.consistent:
+            raise RuntimeError(f"{name}: schedule inconsistent with detection")
+        shape = MEDIUM[prog.ndim]
+        errs = stencil_parity(name, prog, shape, SEED + i)
+        ragged = [stencil_parity(name, prog, s, SEED + i)
+                  for s in ragged_shapes(prog, MARCH[prog.ndim])]
         report["medium"][name] = {"shape": shape, "shuffles": plan.n_shuffles,
                                   "taps": plan.n_taps, "consistent": plan.consistent,
-                                  "max_abs_err": errs}
+                                  "max_abs_err": errs, "ragged_max_abs_err": ragged}
         print(f"[parity] {name:<11} shape {shape} shuffles {plan.n_shuffles:>2} "
               f"taps {plan.n_taps:>2} consistent {plan.consistent} max|err| "
               + " ".join(f"{m} {e:.2e}" for m, e in errs.items())
-              + " bitwise-equal modes")
-        del xs, want, outs
+              + f"; {len(ragged)} shapes ragged along the march and i, max|err| "
+              + f"{max(max(e.values()) for e in ragged):.2e}; bitwise-equal modes")
 
     serving_parity(conv, ssd_kernel, report)
     flash_parity(fa_kernel, report)
@@ -1021,6 +1053,20 @@ def main() -> int:
             library_ms = statistics.median(event_times(lambda: F.conv2d(x4, w), n=10))
             torch.testing.assert_close(F.conv2d(x4, w)[0, 0], keep, **TOL)
             del x4
+        if name == "tricubic":
+            # the separable 4x4x4 weights over w0, plus u + v + s
+            wts = torch.tensor([-0.0625, 0.5625, 0.5625, -0.0625], device=dev)
+            w = (wts[:, None, None] * wts[None, :, None] * wts[None, None, :])[None, None]
+            x5 = xs["w0"][None, None]
+            inner = (slice(2, -2),) * 3
+
+            def library():
+                frac = xs["u"][inner] + xs["v"][inner] + xs["s"][inner]
+                return F.conv3d(x5, w)[0, 0, 1:, 1:, 1:] + frac
+
+            library_ms = statistics.median(event_times(library, n=5, warmup=1))
+            torch.testing.assert_close(library(), keep, **TOL)
+            del x5
         del keep
 
         rec = {"shape": shape, "compulsory_bytes": bytes_, "traffic": traffic,

@@ -85,23 +85,65 @@ def build_library(source: str, include_dirs: Sequence[Path]) -> Library:
     return lib
 
 
-def sass_counts(so_path) -> Dict[str, Dict[str, int]]:
-    """Per kernel of a built library: its SHFL, LDG, HGMMA (warpgroup
-    tensor-core products) and HMMA (warp tensor-core products)
-    instructions, read from ``cuobjdump -sass``."""
-    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([cuobjdump, "-sass", str(so_path)], capture_output=True,
-                          text=True, check=True).stdout
+#: instruction classes counted per kernel by :func:`parse_sass`, by the
+#: opcode's mnemonic (the text before its first ``.``)
+SASS_CLASSES = {
+    "int": ("IMAD", "IADD3", "LEA", "IMNMX", "VIMNMX", "ISETP", "SEL", "SHF"),
+    "float": ("FADD", "FMUL", "FFMA", "MUFU"),
+    "lds_sts": ("LDS", "STS"),
+    "bar": ("BAR",),
+}
+#: instructions counted one by one, anywhere a ``NAME.`` opcode appears
+_SASS_OPS = ("shfl", "ldg", "hgmma", "hmma")
+
+
+def parse_sass(sass: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel of a ``cuobjdump -sass`` listing: its SHFL, LDG, HGMMA
+    (warpgroup tensor-core products) and HMMA (warp tensor-core products)
+    instructions, the classes of :data:`SASS_CLASSES`, and ``total``, every
+    instruction but ``NOP`` (padding)."""
     counts, fn = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            counts[fn] = {"shfl": 0, "ldg": 0, "hgmma": 0, "hmma": 0}
+            counts[fn] = dict.fromkeys(_SASS_OPS + tuple(SASS_CLASSES) + ("total",), 0)
             continue
         m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+([^;]+);", line)
-        if fn and m:
-            op = m.group(1)
-            for name in counts[fn]:
-                counts[fn][name] += bool(re.search(rf"\b{name.upper()}\.", op))
+        if not (fn and m):
+            continue
+        op = m.group(1)
+        c = counts[fn]
+        for name in _SASS_OPS:
+            c[name] += bool(re.search(rf"\b{name.upper()}\.", op))
+        mnemonic = re.sub(r"^@!?U?P\w+\s+", "", op.strip()).split()[0].split(".")[0]
+        if mnemonic == "NOP":
+            continue
+        c["total"] += 1
+        for cls, names in SASS_CLASSES.items():
+            c[cls] += mnemonic in names
     return counts
+
+
+def parse_res_usage(text: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel of a ``cuobjdump -res-usage`` listing: registers per
+    thread (``regs``) and local memory per thread in bytes (``local``,
+    nonzero when registers spill)."""
+    return {fn: {"regs": int(reg), "local": int(local)} for fn, reg, local in
+            re.findall(r"Function (\S+):\s*\n\s*REG:(\d+)\b.*?LOCAL:(\d+)", text)}
+
+
+def _cuobjdump(flag: str, so_path) -> str:
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return subprocess.run([cuobjdump, flag, str(so_path)], capture_output=True,
+                          text=True, check=True).stdout
+
+
+def register_counts(so_path) -> Dict[str, Dict[str, int]]:
+    """:func:`parse_res_usage` of a built library."""
+    return parse_res_usage(_cuobjdump("-res-usage", so_path))
+
+
+def sass_counts(so_path) -> Dict[str, Dict[str, int]]:
+    """:func:`parse_sass` of a built library's ``cuobjdump -sass``."""
+    return parse_sass(_cuobjdump("-sass", so_path))

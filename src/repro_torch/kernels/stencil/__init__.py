@@ -8,11 +8,14 @@ from .ops import (  # noqa: F401
 )
 from .stencil import (  # noqa: F401
     CTA_BLOCKS,
+    MARCH,
     MODES,
     FetchPlan,
     StencilKernel,
+    cta_outputs,
     cuda_source,
     hbm_bytes_per_block,
     make_plan,
+    march,
     shuffle_schedule,
 )

@@ -13,6 +13,8 @@ are generated and compiled at first use, or in bulk by
 from __future__ import annotations
 
 import hashlib
+import os
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
@@ -23,10 +25,10 @@ from repro_torch.build import build_library
 from repro_torch.core.frontend.stencil import Program
 from . import ref as stencil_ref
 from .stencil import (
-    CTA_BLOCKS,
     MODES,
     KernelSpec,
     StencilKernel,
+    cta_outputs,
     cuda_source,
     hbm_bytes_per_block,
     input_arrays,
@@ -63,18 +65,21 @@ def _spec(prog: Program, mode: str, max_delta: int) -> KernelSpec:
 
 
 def build_kernels(items: Iterable[Tuple[Program, str, int]]) -> List[StencilKernel]:
-    """Build every ``(program, mode, max_delta)`` not built yet with one
-    ``nvcc`` call; returns the kernels in the order given."""
+    """Build every ``(program, mode, max_delta)`` not built yet, one
+    ``nvcc`` call per program, the calls running together; returns the
+    kernels in the order given."""
     items = list(items)
-    todo: Dict = {}
+    todo: Dict[str, Dict] = {}
     for prog, mode, max_delta in items:
         key = _key(prog, mode, max_delta)
-        if key not in _KERNELS and key not in todo:
-            todo[key] = _spec(prog, mode, max_delta)
-    if todo:
-        lib = build_library(cuda_source(list(todo.values())), [CSRC])
-        for key, spec in todo.items():
-            _KERNELS[key] = StencilKernel(spec, lib)
+        if key not in _KERNELS and not any(key in t for t in todo.values()):
+            todo.setdefault(repr(prog), {})[key] = _spec(prog, mode, max_delta)
+    with ThreadPoolExecutor(max_workers=max(1, min(len(todo), os.cpu_count() or 1))) as pool:
+        libs = pool.map(lambda specs: build_library(cuda_source(list(specs.values())), [CSRC]),
+                        todo.values())
+        for specs, lib in zip(todo.values(), libs):
+            for key, spec in specs.items():
+                _KERNELS[key] = StencilKernel(spec, lib)
     return [_KERNELS[_key(p, m, d)] for p, m, d in items]
 
 
@@ -129,10 +134,11 @@ def traffic_report(prog: Program, shape: Tuple[int, ...],
                    block: Optional[Sequence[int]] = None) -> Dict[str, float]:
     """Analytic global-memory read traffic per mode for a full problem, in
     bytes: the reference's fetch-plan model evaluated at the CUDA
-    kernel's CTA shape (``block`` in array-axis order).  ``compulsory``
-    is each input array read once plus the interior output written once.
+    kernel's CTA output box (``block`` in array-axis order).
+    ``compulsory`` is each input array read once plus the interior output
+    written once.
     """
-    block = tuple(block) if block else CTA_BLOCKS[prog.ndim]
+    block = tuple(block) if block else cta_outputs(prog.ndim)
     nd = prog.ndim
     interior = stencil_ref.interior_shape(tuple(shape), prog.halo)
     n_blocks = 1

@@ -6,22 +6,26 @@ Mirrors ``src/repro/kernels/stencil/stencil.py``: ``MODES``, ``Fetch``,
 reference's, field for field.  Where the TPU kernel imitated
 ``shfl.sync`` with a shifted slice of a VMEM tile, the CUDA kernel
 issues the instruction itself: a warp's lanes run along ``i`` (as
-``lower_to_ptx`` puts ``tid.x`` on ``i``), each thread computes one
-output point, and the three modes differ only in how each tap reaches
-the thread:
+``lower_to_ptx`` puts ``tid.x`` on ``i``), and each thread marches
+``MARCH[ndim]`` outputs along the outer axis (k in 3-D, j in 2-D),
+keeping in registers the taps it already holds, so that each step
+fetches only the taps of the entering plane (:func:`march`).  The three
+modes differ only in how such a tap reaches the thread:
 
-``naive``   one ``__ldg`` per unique tap (the paper's *Original*);
+``naive``   one ``__ldg`` (the paper's *Original*);
 ``paper``   per row of the ``paper`` plan, only the row's source taps
             are loaded; every covered tap arrives through
             ``__shfl_down_sync``/``__shfl_up_sync`` by the schedule's
             delta, which ``synthesize_cuda`` requires to equal the
             emulator's detection tap by tap; corner lanes reload from
             global memory;
-``tile``    one halo tile per array staged in shared memory.
+``tile``    from one shared-memory buffer per array (:func:`tiles`): a
+            ring of planes in 3-D, one box in 1-D and 2-D.
 
 The device code shared by all kernels is ``csrc/stencil_common.cuh``;
-this module emits, per (program, mode), the tap fetches and the
-program's expression, then :mod:`repro_torch.build` compiles them.
+this module emits, per (program, mode), the program's expression as a
+function of its taps and the march that calls it, then
+:mod:`repro_torch.build` compiles them.
 """
 
 from __future__ import annotations
@@ -51,6 +55,14 @@ MODES = ("naive", "paper", "tile")
 #: CTA shape per ndim, in array-axis order (…, j, i): a warp spans 32
 #: consecutive i; 2-D and 3-D CTAs stack 8 warps along j.
 CTA_BLOCKS = {1: (256,), 2: (8, 32), 3: (1, 8, 32)}
+
+#: outputs per thread along the march axis (j in 2-D, k in 3-D), by ndim
+MARCH = {1: 1, 2: 8, 3: 16}
+
+#: CTAs each SM must fit (``__launch_bounds__``): at most 128 registers a
+#: thread.  Left alone, ptxas gives 3-D paper and tile kernels 136 and more,
+#: one CTA per SM, and starves 2-D paper of registers (34)
+MIN_CTAS_PER_SM = 2
 
 #: static shared memory a CTA may declare without opting in
 _SMEM_LIMIT = 48 * 1024
@@ -199,6 +211,11 @@ class KernelSpec:
     mode: str
     rows: Tuple[RowShuffles, ...] = ()
 
+    @property
+    def steps(self) -> int:
+        """Outputs per thread along the march."""
+        return MARCH[self.prog.ndim]
+
 
 def input_arrays(prog: Program) -> List[str]:
     """Kernel input order: ``sorted`` names, the output excluded."""
@@ -207,6 +224,16 @@ def input_arrays(prog: Program) -> List[str]:
 
 def _pad3(off: Tuple[int, ...]) -> Tuple[int, int, int]:
     return tuple(off) + (0,) * (3 - len(off))
+
+
+def cta_outputs(ndim: int) -> Tuple[int, ...]:
+    """The output box of one CTA, in array-axis order (…, j, i)."""
+    block = CTA_BLOCKS[ndim]
+    if ndim == 1:
+        return block
+    if ndim == 2:
+        return (block[0] * MARCH[2], block[1])
+    return (MARCH[3],) + block[1:]
 
 
 def _expression(prog: Program, tap_var: Dict[Tuple, str]) -> List[str]:
@@ -242,88 +269,264 @@ def _expression(prog: Program, tap_var: Dict[Tuple, str]) -> List[str]:
     return lines
 
 
-def _fetches(spec: KernelSpec, arg_of: Dict[str, str],
-             tap_var: Dict[Tuple, str], bx: int, by: int) -> List[str]:
-    """Statements that define every tap variable, per the mode."""
+# ---------------------------------------------------------------------------
+# the march: which taps each step fetches, and how
+# ---------------------------------------------------------------------------
 
-    def offs(off: Tuple[int, ...]) -> str:
-        return ", ".join(str(v) for v in _pad3(off))
+@dataclass(frozen=True)
+class TapFetch:
+    """One tap a step of the march fetches.  A tap is named by its array,
+    its i and (3-D) j offsets from the thread's point, and its ``plane``
+    along the march, relative to the thread's first output (0 in 1-D).
+    ``how`` is ``load`` (a global load), ``shfl`` (from the lane
+    ``delta`` away, which holds the tap ``src`` of the same row) or
+    ``smem`` (from the CTA's shared-memory tile)."""
 
-    lines: List[str] = []
-    if spec.mode == "naive":
-        for (arr, off), v in tap_var.items():
-            lines.append(f"const float {v} = rs::load({arg_of[arr]}, d, p, {offs(off)});")
-    elif spec.mode == "paper":
-        for row in spec.rows:
-            a = arg_of[row.array]
-            for li in row.sources:
-                off = (li,) + row.rest
-                lines.append(f"const float {tap_var[(row.array, off)]} = "
-                             f"rs::load({a}, d, p, {offs(off)});")
-            for dst, src, delta in row.covered:
-                off = (dst,) + row.rest
-                s = tap_var[(row.array, (src,) + row.rest)]
-                lines.append(f"const float {tap_var[(row.array, off)]} = "
-                             f"rs::shuffled({s}, {a}, d, p, {offs(off)}, {delta});")
-    else:  # tile
-        sizes = []
-        for f in make_plan(spec.prog, "tile").fetches:
-            li, lj, lk = _pad3(f.lo)
-            hi_, hj, hk = _pad3(f.hi)
-            # the CTA covers bx x by x 1 points, widened by the taps' extent
-            ti, tj, tk = bx + hi_ - li, by + hj - lj, 1 + hk - lk
-            sizes.append(ti * tj * tk)
-            lines.append(f"rs::stage<{bx}, {by}>(tile, {arg_of[f.array]}, d, "
-                         f"{li}, {lj}, {lk}, {ti}, {tj}, {tk});")
-            for off in f.taps:
-                lines.append(f"const float {tap_var[(f.array, off)]} = "
-                             f"rs::from_tile(tile, {offs(off)}, "
-                             f"{li}, {lj}, {lk}, {ti}, {tj});")
-        words = max(sizes)
-        if 4 * words > _SMEM_LIMIT:
-            raise ValueError(f"{spec.symbol}: a {4 * words}-byte tile exceeds "
-                             f"{_SMEM_LIMIT} bytes of static shared memory")
-        lines.insert(0, f"__shared__ float tile[{words}];")
-    return lines
+    array: str
+    oi: int
+    oj: int
+    plane: int
+    how: str
+    src: int = 0
+    delta: int = 0
+
+
+def tap_at(array: str, off: Tuple[int, ...], step: int) -> Tuple[str, int, int, int]:
+    """(array, oi, oj, plane) of the program's tap ``off`` at a step."""
+    if len(off) == 1:
+        return (array, off[0], 0, 0)
+    if len(off) == 2:
+        return (array, off[0], 0, step + off[1])
+    return (array, off[0], off[1], step + off[2])
+
+
+def march(spec: KernelSpec) -> List[List[TapFetch]]:
+    """Per step, the taps the thread fetches, in order: every tap of the
+    step's output that it does not hold from an earlier step.  ``paper``
+    visits the schedule's rows, each row's sources (loads) before its
+    covered taps (shuffles by the detected delta); the others visit the
+    program's taps."""
+    prog = spec.prog
+    held = set()
+    steps = []
+    for step in range(spec.steps):
+        fetches = []
+
+        def need(array, off, how, src=0, delta=0):
+            key = tap_at(array, off, step)
+            if key not in held:
+                held.add(key)
+                fetches.append(TapFetch(*key, how, src, delta))
+
+        if spec.mode == "paper":
+            for row in spec.rows:
+                for li in row.sources:
+                    need(row.array, (li,) + row.rest, "load")
+                for dst, src, delta in row.covered:
+                    need(row.array, (dst,) + row.rest, "shfl", src, delta)
+        else:
+            how = "load" if spec.mode == "naive" else "smem"
+            for array, off in _unique_taps(prog):
+                need(array, off, how)
+        steps.append(fetches)
+    return steps
+
+
+@dataclass(frozen=True)
+class Tile:
+    """One array's shared-memory buffer in ``tile`` mode: a box of
+    ``ti`` x ``tj`` words whose corner is (li, lj) from the CTA's first
+    point; in 3-D a ring of ``slots`` such planes."""
+
+    array: str
+    li: int
+    lj: int
+    lk: int
+    hk: int
+    ti: int
+    tj: int
+    slots: int
+
+    @property
+    def words(self) -> int:
+        return self.ti * self.tj * self.slots
+
+    def slot(self, plane: int) -> int:
+        """Offset in the buffer of the ring slot that holds ``plane``."""
+        return (plane - self.lk) % self.slots * self.ti * self.tj
+
+
+def tiles(prog: Program) -> List[Tile]:
+    """The ``tile`` mode's buffers, one per array of the tile plan.  In
+    3-D the ring holds the hk - lk + 1 planes a step reads and the plane
+    read a step before, so the plane entering at a step overwrites one
+    last read two steps back: one barrier per step orders the two."""
+    nd = prog.ndim
+    bx, by = CTA_BLOCKS[nd][-1], (CTA_BLOCKS[nd][-2] if nd > 1 else 1)
+    out = []
+    for f in make_plan(prog, "tile").fetches:
+        li, lj, lk = _pad3(f.lo)
+        hi, hj, hk = _pad3(f.hi)
+        if nd == 3:
+            out.append(Tile(f.array, li, lj, lk, hk, bx + hi - li, by + hj - lj,
+                            hk - lk + 2))
+        elif nd == 2:
+            out.append(Tile(f.array, li, lj, 0, 0, bx + hi - li,
+                            by * MARCH[2] + hj - lj, 1))
+        else:
+            out.append(Tile(f.array, li, 0, 0, 0, bx + hi - li, 1, 1))
+    return out
+
+
+def tile_stages(spec: KernelSpec) -> List[List[Tuple[Tile, int]]]:
+    """Per step, the (buffer, plane) pairs the CTA stages before its
+    barrier: every plane a tap of step 0 reads, then in 3-D the entering
+    plane of each array; 1-D and 2-D stage their one box at step 0."""
+    ts = tiles(spec.prog)
+    if spec.prog.ndim < 3:
+        return [[(t, 0) for t in ts]] + [[] for _ in range(spec.steps - 1)]
+    return [[(t, p) for t in ts for p in range(t.lk, t.hk + 1)]] + \
+        [[(t, step + t.hk) for t in ts] for step in range(1, spec.steps)]
+
+
+# ---------------------------------------------------------------------------
+# emitting the march
+# ---------------------------------------------------------------------------
+
+def _plane_offset(nd: int, steps: int, plane: int) -> str:
+    return f"rs::tile_plane<{steps}>(d, p, {plane})" if nd == 3 else "0"
+
+
+class _Emitter:
+    """Names the march's values as the generator emits them: a plane
+    offset, a row pointer and a tap value once each, at first use."""
+
+    def __init__(self):
+        self.lines: List[str] = []
+        self.names: Dict[Tuple, str] = {}
+
+    def name(self, key: Tuple, prefix: str, definition: str) -> str:
+        if key not in self.names:
+            self.names[key] = f"{prefix}{len(self.names)}"
+            self.lines.append(definition.format(self.names[key]))
+        return self.names[key]
+
+
+def _march_body(spec: KernelSpec, arg_of: Dict[str, str], fn: str,
+                scalars: List[str], head: Tuple[int, int, int, int]) -> List[str]:
+    """The march as statements: per step, the fetches, then the store."""
+    prog = spec.prog
+    nd = prog.ndim
+    taps = _unique_taps(prog)
+    stages = tile_stages(spec) if spec.mode == "tile" else []
+    buffers = {t.array: t for t in tiles(prog)}
+    em = _Emitter()
+    for step, fetches in enumerate(march(spec)):
+        em.lines.append(f"// step {step}")
+        if stages and stages[step]:
+            # a plane is fetched into registers a step ahead (3-D; at step 0
+            # every plane it reads) and stored before the step's barrier
+            for t, plane in stages[step]:
+                a = arg_of[t.array]
+                if step == 0:
+                    em.lines.append(f"st_{a}.fetch({a}, {_plane_offset(nd, spec.steps, plane)});")
+                em.lines.append(f"st_{a}.store(sm_{a} + {t.slot(plane)});")
+            em.lines.append("__syncthreads();")
+            for t, plane in (stages[step + 1] if step + 1 < len(stages) else []):
+                a = arg_of[t.array]
+                em.lines.append(f"st_{a}.fetch({a}, {_plane_offset(nd, spec.steps, plane)});")
+        for f in fetches:
+            a = arg_of[f.array]
+            if f.how == "smem":
+                t = buffers[f.array]
+                row = em.name(("row", f.array, f.oj, f.plane), "r",
+                              f"const float* const {{}} = rs::tile_row<{t.ti}, "
+                              f"{spec.steps}, {nd}>(sm_{a} + {t.slot(f.plane)}, "
+                              f"{f.plane}, {f.oj}, {t.li}, {t.lj});")
+                value = f"{row}[{f.oi}]"
+            else:
+                q = em.name(("plane", f.plane), "q",
+                            f"const long long {{}} = rs::plane(d, p, {f.plane});")
+                row = em.name(("row", f.array, f.oj, f.plane), "r",
+                              f"const float* const {{}} = rs::row({a}, d, {q}, {f.oj});")
+                if f.how == "load":
+                    value = f"rs::load<kEdge>({row}, p, {f.oi})"
+                else:
+                    src = em.names[("tap", f.array, f.src, f.oj, f.plane)]
+                    value = (f"rs::shuffled<kEdge>({src}, {row}, p, {f.oi}, "
+                             f"{f.delta})")
+            em.name(("tap", f.array, f.oi, f.oj, f.plane), "v",
+                    f"const float {{}} = {value};")
+        args = [em.names[("tap",) + tap_at(arr, off, step)] for arr, off in taps]
+        em.lines.append(f"rs::store(out, d, p, {step}, "
+                        f"{fn}({', '.join(args + scalars)}));")
+    return em.lines
 
 
 def kernel_source(spec: KernelSpec) -> str:
-    """CUDA source of one kernel and its ``extern "C"`` launcher."""
+    """CUDA source of one kernel and its ``extern "C"`` launcher: the
+    expression as a function of the taps, the march (in ``naive`` and
+    ``paper`` twice, for full warps and for the edge warp of a row), the
+    kernel and the launcher."""
     prog = spec.prog
+    nd = prog.ndim
     if spec.mode not in MODES:
         raise ValueError(f"unknown mode {spec.mode!r}")
     if spec.mode == "paper" and not spec.rows:
         raise ValueError(f"{spec.symbol}: paper mode needs a shuffle schedule")
-    block = CTA_BLOCKS[prog.ndim]
-    bx, by = block[-1], (block[-2] if prog.ndim > 1 else 1)
+    block = CTA_BLOCKS[nd]
+    bx, by = block[-1], (block[-2] if nd > 1 else 1)
+    head = (bx, by, spec.steps, nd)
     names = input_arrays(prog)
     arg_of = {a: f"a{n}" for n, a in enumerate(names)}
-    tap_var = {key: f"t{n}" for n, key in enumerate(_unique_taps(prog))}
+    taps = _unique_taps(prog)
+    tap_var = {key: f"t{n}" for n, key in enumerate(taps)}
+    scalars = [f"s{n}" for n in range(len(prog.scalars))]
     h = _pad3(prog.halo)
-
-    params = ["const rs::Dims d"]
-    params += [f"const float* __restrict__ {arg_of[a]}" for a in names]
-    params += ["float* __restrict__ out"]
-    params += [f"const float s{n}" for n in range(len(prog.scalars))]
-    body = _fetches(spec, arg_of, tap_var, bx, by) + _expression(prog, tap_var)
-
-    args = [f"(const float*)in[{n}]" for n in range(len(names))]
-    args += ["(float*)out"]
-    args += [f"sc[{n}]" for n in range(len(prog.scalars))]
+    fn = f"{spec.symbol}_f"
     ind = "\n  "
-    return (
-        f"// {prog.name}, mode {spec.mode}\n"
-        f"extern \"C\" __global__ void __launch_bounds__({bx * by}) "
-        f"{spec.symbol}(\n    {', '.join(params)}) {{\n"
-        f"  const rs::Point p = rs::point<{bx}, {by}>(d);\n"
-        f"  {ind.join(body)}\n"
-        f"  rs::store(out, d, p, r);\n}}\n\n"
+
+    params = [f"const float* __restrict__ {arg_of[a]}" for a in names]
+    params += ["float* __restrict__ out"]
+    params += [f"const float {s}" for s in scalars]
+    args = [arg_of[a] for a in names] + ["out"] + scalars
+    body = _march_body(spec, arg_of, fn, scalars, head)
+
+    src = (f"// {prog.name}, mode {spec.mode}, {spec.steps} outputs per thread\n"
+           f"__device__ __forceinline__ float {fn}(\n    "
+           + ", ".join([f"const float {v}" for v in tap_var.values()]
+                       + [f"const float {s}" for s in scalars])
+           + f") {{\n  {ind.join(_expression(prog, tap_var))}\n  return r;\n}}\n\n")
+    if spec.mode == "tile":
+        ts = tiles(prog)
+        words = sum(t.words for t in ts)
+        if 4 * words > _SMEM_LIMIT:
+            raise ValueError(f"{spec.symbol}: {4 * words} bytes of tiles exceed "
+                             f"{_SMEM_LIMIT} bytes of static shared memory")
+        smem = [f"__shared__ float sm_{arg_of[t.array]}[{t.words}];" for t in ts]
+        stagers = [f"rs::Stager<{', '.join(map(str, head))}, {t.ti}, {t.tj}> "
+                   f"st_{arg_of[t.array]}(d, {t.li}, {t.lj});" for t in ts]
+        kernel = smem + stagers + body
+    else:
+        src += (f"template <bool kEdge>\n__device__ __forceinline__ void "
+                f"{spec.symbol}_march(\n    const rs::Dims& d, const rs::Point& p, "
+                f"{', '.join(params)}) {{\n  {ind.join(body)}\n}}\n\n")
+        call = f"{spec.symbol}_march<{{}}>(d, p, {', '.join(args)});"
+        kernel = [f"if (p.edge) {call.format('true')}",
+                  f"else {call.format('false')}"]
+    launch_args = [f"(const float*)in[{n}]" for n in range(len(names))]
+    launch_args += ["(float*)out"] + [f"sc[{n}]" for n in range(len(scalars))]
+    return src + (
+        f"extern \"C\" __global__ void __launch_bounds__({bx * by}, {MIN_CTAS_PER_SM}) "
+        f"{spec.symbol}(\n    const rs::Dims d, {', '.join(params)}) {{\n"
+        f"  const rs::Point p = rs::point<{', '.join(map(str, head))}>(d);\n"
+        f"  {ind.join(kernel)}\n}}\n\n"
         f"extern \"C\" int launch_{spec.symbol}(const void* const* in, "
         f"void* out, const long long* shape, const float* sc, "
         f"void* stream) {{\n"
-        f"  const rs::Dims d = rs::make_dims(shape, {h[0]}, {h[1]}, {h[2]});\n"
-        f"  return rs::launch<{bx}, {by}>({spec.symbol}, d, stream, "
-        f"{', '.join(args)});\n}}\n")
+        f"  const rs::Dims d = rs::make_dims(shape, {h[0]}, {h[1]}, {h[2]}, {nd});\n"
+        f"  return rs::launch<{', '.join(map(str, head))}>({spec.symbol}, d, stream, "
+        f"{', '.join(launch_args)});\n}}\n")
 
 
 def cuda_source(specs: Sequence[KernelSpec]) -> str:
@@ -371,8 +574,8 @@ class StencilKernel:
         interior = interior_shape(shape, prog.halo)
         if min(interior) < 0:
             raise ValueError(f"shape {shape} is smaller than the halo {prog.halo}")
-        block = CTA_BLOCKS[prog.ndim]
-        grid_yz = [-(-interior[a] // block[a]) for a in range(prog.ndim - 1)]
+        box = cta_outputs(prog.ndim)
+        grid_yz = [-(-interior[a] // box[a]) for a in range(prog.ndim - 1)]
         if any(g > 65535 for g in grid_yz):
             raise ValueError(f"interior {interior} needs more than 65535 "
                              "CTAs along j or k")

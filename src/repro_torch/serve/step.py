@@ -48,7 +48,9 @@ def generate(model, batch: Dict[str, torch.Tensor], n_tokens: int,
              max_len: Optional[int] = None,
              times: Optional[Dict[str, float]] = None) -> torch.Tensor:
     """Greedy/temperature generation loop (host-side driver); returns
-    (B, n_tokens) int32.  If ``times`` is given, it receives the seconds
+    (B, n_tokens) int32.  The first token is the prefill's argmax whatever
+    the temperature, as in the reference; decode steps sample.  If
+    ``times`` is given, it receives the seconds
     of the prefill (``prefill_s``) and of the decode steps (``decode_s``),
     each ending in a device synchronise."""
     B, S = batch["tokens"].shape
@@ -56,7 +58,7 @@ def generate(model, batch: Dict[str, torch.Tensor], n_tokens: int,
     dev = model.device
     t0 = time.perf_counter()
     logits, cache = make_prefill_step(model, max_len)(batch)
-    tok = _sample(logits, temperature, generator)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)   # as the reference, at any temperature
     _sync(dev)
     t1 = time.perf_counter()
     decode = make_decode_step(model, temperature)

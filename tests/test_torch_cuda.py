@@ -20,6 +20,7 @@ from repro_torch.kernels import ssd as tssd
 from repro_torch.kernels.instances import check_rounded
 from repro_torch.models import build_model
 from repro_torch.kernels.stencil import (
+    MARCH,
     MODES,
     build_kernels,
     reference,
@@ -53,13 +54,30 @@ def _inputs(prog, shape, seed, device):
     return arrays_from_numpy(arrays, device), scalars
 
 
+def _shape(prog, case):
+    """A ragged full shape: ``wide``, or an interior whose march is 1,
+    R - 1 or R + 1 outputs long (R outputs per thread) over 31 or 33
+    lanes along i."""
+    nd, R = prog.ndim, MARCH[prog.ndim]
+    if case == "wide":
+        return {1: (100_003,), 2: (133, 517), 3: (13, 37, 261)}[nd]
+    outer, wi = {"1x31": (1, 31), "R-1x33": (R - 1, 33), "R+1x31": (R + 1, 31),
+                 "R+1x33": (R + 1, 33)}[case]
+    interior = {1: (wi,), 2: (outer, wi), 3: (outer, 11, wi)}[nd]
+    return tuple(n + 2 * h for n, h in zip(interior, reversed(prog.halo)))
+
+
+CASES = ["wide", "1x31", "R-1x33", "R+1x31", "R+1x33"]
+
+
+@pytest.mark.parametrize("case", CASES)
 @pytest.mark.parametrize("name", STENCIL_BENCHES)
-def test_kernels_match_plain(cuda_device, name):
+def test_kernels_match_plain(cuda_device, name, case):
     """Each mode's kernel against the plain version at a ragged shape,
     and the three modes bitwise equal."""
     b = get_bench(name)
     prog = b.program
-    shape = {1: (100_003,), 2: (133, 517), 3: (13, 37, 261)}[prog.ndim]
+    shape = _shape(prog, case)
     xs, scalars = _inputs(prog, shape, 3, cuda_device)
     want = reference(prog, xs, scalars)
     kernels = build_kernels([(prog, m, b.max_delta) for m in MODES])
@@ -74,11 +92,16 @@ def test_kernels_match_plain(cuda_device, name):
     assert torch.equal(outs[0], outs[1]) and torch.equal(outs[1], outs[2])
 
 
-@pytest.mark.parametrize("shape", [(5, 5), (6, 37), (40, 70)])
+@pytest.mark.parametrize("name,shape", [
+    ("gaussblur", (5, 5)), ("gaussblur", (6, 37)), ("gaussblur", (40, 70)),
+    *[(n, c) for n in ("gaussblur", "tricubic") for c in CASES[1:]]])
 @pytest.mark.parametrize("mode", MODES)
-def test_entry_point_small_and_ragged(cuda_device, shape, mode):
-    """Interiors narrower than a warp or a CTA, through ``stencil_apply``."""
-    prog = get_bench("gaussblur").program
+def test_entry_point_small_and_ragged(cuda_device, name, shape, mode):
+    """Interiors narrower than a warp or a CTA, and marches ragged along
+    the outer axis, through ``stencil_apply``."""
+    prog = get_bench(name).program
+    if isinstance(shape, str):
+        shape = _shape(prog, shape)
     xs, scalars = _inputs(prog, shape, 4, cuda_device)
     out = stencil_apply(prog, xs, scalars, mode=mode)
     torch.testing.assert_close(out, reference(prog, xs, scalars), **TOL)

@@ -120,6 +120,20 @@ def test_temperature_sampling_is_seeded(pair):
     assert int(runs[0].min()) >= 0 and int(runs[0].max()) < model.cfg.vocab
 
 
+def test_first_token_at_temperature_is_the_prefill_argmax(pair):
+    """At temperature 1.0 the first token is still the prefill's argmax,
+    as the reference's ``generate`` takes it; the decode steps sample."""
+    jm, params, model = pair
+    toks = _tokens(model.cfg, 8, 16, seed=5)
+    got = generate(model, {"tokens": torch.from_numpy(toks)}, n_tokens=4,
+                   temperature=1.0, generator=torch.Generator().manual_seed(5))
+    logits, _ = model.prefill({"tokens": torch.from_numpy(toks)})
+    want = np.asarray(jax_generate(jm, params, {"tokens": jnp.asarray(toks)},
+                                   n_tokens=1, temperature=1.0))[:, 0]
+    np.testing.assert_array_equal(got[:, 0].numpy(), torch.argmax(logits, -1).numpy())
+    np.testing.assert_array_equal(got[:, 0].numpy(), want)
+
+
 def test_mamba_decode_equals_full():
     """The port of ``tests/test_models.py::test_mamba_decode_equals_full``,
     on the port's own init."""
