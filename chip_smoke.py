@@ -12,15 +12,17 @@ Phases, each fatal on failure:
    the CUDA-core one at Dh 8-128 in float32 and bfloat16), each source in
    an nvcc call of its own; then ``SHFL``/``LDG``/``HGMMA``/``HMMA``
    instructions counted per kernel in the built SASS (``HGMMA`` in every
-   tensor-core instance, in no CUDA-core one), and per stencil kernel its
-   registers and its SASS by class (integer, float, shared memory,
-   barriers) per output;
+   tensor-core instance, in no CUDA-core one), and per stencil and conv1d
+   kernel its registers and its SASS by class (integer, float, shared
+   memory, barriers) per output (per output vector for conv1d);
 3. parity: per stencil bench, the shuffle plan (emulator detection vs
    schedule) and each mode's kernel against the plain PyTorch version at
    a ragged medium shape and at shapes ragged along the march (1, R - 1,
    R + 1 outputs) and along i (31, 33, 77 lanes), the three modes bitwise
    equal; conv1d (both
-   modes, bitwise equal) and SSD (y and final state; chunk 8 vs 64, and
+   modes, bitwise equal; L ragged against the march, x a column range of
+   a wider tensor at an aligned and at odd strides) and SSD (y and final
+   state; chunk 8 vs 64, and
    the tensor-core instance's chunk 64 vs 256 in bf16) against their
    plain versions at ragged shapes; flash attention against its plain
    version at the reference test's five shapes, Sq > a ragged Sk, GQA
@@ -38,13 +40,15 @@ Phases, each fatal on failure:
    greedy tokens through ``repro_torch.launch.serve``, with launch counts
    read around the run (48 conv1d ``shuffle`` and 48 SSD launches per
    prefill, every SSD call on the tensor-core instance); layer 0's conv1d
-   and SSD inputs are captured on that run, each kernel (conv1d in both
-   modes, bitwise equal) is held against its plain version on them and
-   timed beside its bound, the plain version and (conv1d)
-   ``F.conv1d(groups=C)`` + SiLU, and the SSD's CUDA kernels timed one by
+   and SSD inputs are captured on that run (the conv's is required to be
+   the in-projection's column view the model passes), each kernel (conv1d
+   in both modes, bitwise equal) is held against its plain version on them
+   and timed beside its bound, the plain version and (conv1d)
+   ``F.conv1d(groups=C)`` + SiLU and a copy of the same bytes, and the
+   SSD's CUDA kernels timed one by
    one from a ``torch.profiler`` trace; one more warm prefill is traced
    and its device time split by kernel family (SSD, flash attention,
-   conv1d, matmul, other) beside its wall time; the reduced model on the card against
+   conv1d, cat, matmul, other) beside its wall time; the reduced model on the card against
    the plain path on the CPU; and a float32 continuity check at full
    width (prefill 512 == prefill 256 + 256 decode steps);
 6. the hybrid serving path, the same way: zamba2-1.2b at its published
@@ -317,7 +321,8 @@ def rounded_note(r) -> str:
 
 def serving_parity(conv, ssd_kernel, report) -> None:
     """Phase 3b: conv1d and SSD against their plain versions at ragged
-    shapes (neither L nor C a multiple of the CTA tile; chunks that are
+    shapes (neither L nor C a multiple of the CTA tile, L ragged against
+    the conv march, x as a column range of a wider tensor; chunks that are
     not multiples of the 64-row score tile)."""
     import numpy as np
     import torch
@@ -328,11 +333,18 @@ def serving_parity(conv, ssd_kernel, report) -> None:
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     rng = np.random.default_rng(SEED)
     report["conv1d_parity"], report["ssd_parity"] = [], []
-    for B, L, C, W in [(4, 1000, 4352, 4), (3, 37, 77, 4), (1, 129, 200, 3),
-                       (2, 333, 4350, 4)]:
+    march = tconv.conv1d.STEPS * tconv.conv1d.POSITIONS
+    # (B, L, C, W, columns left and right of x in a wider tensor): ragged L
+    # and C; L ragged against the march (1, 8S - 1, 8S + 1); x as Mamba-2's
+    # in-projection columns (aligned) and at an odd row stride and base
+    for B, L, C, W, left, right in [
+            (4, 1000, 4352, 4, 0, 0), (3, 37, 77, 4, 0, 0), (1, 129, 200, 3, 0, 0),
+            (2, 333, 4350, 4, 0, 0), (3, 1, 77, 4, 0, 0), (2, march - 1, 4352, 4, 0, 0),
+            (2, march + 1, 200, 3, 0, 0), (4, 1024, 4352, 4, 4096, 64),
+            (2, 333, 200, 4, 4096, 65), (2, 2 * march + 3, 456, 3, 4097, 63)]:
         for dname, dtype in dtypes.items():
-            x, w, b = (randn((B, L, C), dtype, rng), randn((W, C), dtype, rng),
-                       randn((C,), dtype, rng))
+            x = randn((B, L, left + C + right), dtype, rng)[..., left:left + C]
+            w, b = randn((W, C), dtype, rng), randn((C,), dtype, rng)
             want = tconv.ref.causal_conv1d(x, w, b)
             outs = [conv[(m, W)](x, w, b) for m in tconv.MODES]
             torch.cuda.synchronize()
@@ -344,9 +356,9 @@ def serving_parity(conv, ssd_kernel, report) -> None:
             if not torch.equal(outs[0], outs[1]):
                 raise RuntimeError(f"conv1d {(B, L, C, W)} {dname}: modes differ")
             report["conv1d_parity"].append({"shape": (B, L, C, W), "dtype": dname,
-                                            "max_abs_err": errs})
-            print(f"[parity] conv1d {(B, L, C, W)} {dname:<8} max|err| naive "
-                  f"{errs[0]:.2e} shuffle {errs[1]:.2e}, modes bitwise equal")
+                                            "x_strides": x.stride(), "max_abs_err": errs})
+            print(f"[parity] conv1d {(B, L, C, W)} {dname:<8} x strides {x.stride()} "
+                  f"max|err| naive {errs[0]:.2e} shuffle {errs[1]:.2e}, modes bitwise equal")
     for B, L, H, P, N, Q in [(2, 64, 4, 16, 16, 16), (1, 128, 2, 32, 64, 32),
                              (2, 96, 3, 8, 16, 32), (1, 64, 2, 16, 16, 64),
                              (2, 768, 5, 64, 128, 256), (1, 384, 3, 12, 20, 96),
@@ -457,7 +469,7 @@ def prefill_split(model, batch, arch: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     families = (("ssd", ("ssd_tc::", "ssd::")), ("flash_attention", ("flash_tc::", "flash::")),
-                ("conv1d", ("conv1d_",)),
+                ("conv1d", ("conv1d_",)), ("cat", ("CatArrayBatchedCopy",)),
                 ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")))
     model.prefill(batch)
     torch.cuda.synchronize()
@@ -577,9 +589,10 @@ def serve_run(report, arch: str, want: dict):
 
 
 def layer0_conv1d(conv, args, launches, report, entries, name) -> None:
-    """Both conv1d modes on layer 0's input: parity with the plain version,
-    times beside the bound, the plain version and F.conv1d + SiLU.  Only
-    ``shuffle``, the mode the model runs, enters the kernels line."""
+    """Both conv1d modes on layer 0's input, the in-projection's column
+    view the model passes: parity with the plain version, times beside the
+    bound, the plain version, F.conv1d + SiLU and a copy of the same bytes.
+    Only ``shuffle``, the mode the model runs, enters the kernels line."""
     import torch
     import torch.nn.functional as F
 
@@ -588,6 +601,9 @@ def layer0_conv1d(conv, args, launches, report, entries, name) -> None:
     x, w, b = args
     B, L, C = x.shape
     W = w.shape[0]
+    if x.is_contiguous() or x.stride(2) != 1:
+        raise RuntimeError(f"conv1d: layer 0's input {tuple(x.shape)}, strides "
+                           f"{x.stride()}, is not a column view of the in-projection")
     tol = CONV_TOL["bfloat16" if x.dtype == torch.bfloat16 else "float32"]
     want = tconv.ref.causal_conv1d(x, w, b)
     outs = {m: conv[(m, W)](x, w, b) for m in tconv.MODES}
@@ -605,18 +621,23 @@ def layer0_conv1d(conv, args, launches, report, entries, name) -> None:
 
     torch.testing.assert_close(library().transpose(1, 2).float(), want.float(),
                                rtol=tol, atol=tol)
+    print(f"[serve-kernel] conv1d layer 0's input {tuple(x.shape)} {x.dtype} is the "
+          f"in-projection's column view, strides {x.stride()}")
     item = x.element_size()
     nbytes = 2 * x.numel() * item + (W + 1) * C * item
     flops = x.numel() * (2 * W + 4)           # W mul-adds, SiLU (exp, add, div)
     bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
              "operations": flops / F32_FLOPS * 1e3}
     bound_by = max(bound, key=bound.get)
+    dense = torch.empty((B, L, C), dtype=x.dtype, device=x.device)
     times = cold_ms({**{m: (lambda k=conv[(m, W)]: k(x, w, b)) for m in tconv.MODES},
-                     "plain": lambda: tconv.ref.causal_conv1d(x, w, b), "library": library}, 40)
-    plain_ms, library_ms = times["plain"], times["library"]
-    rec = {"shape": (B, L, C, W), "dtype": str(x.dtype), "bytes": nbytes,
+                     "plain": lambda: tconv.ref.causal_conv1d(x, w, b), "library": library,
+                     "copy": lambda: dense.copy_(x)}, 40)
+    plain_ms, library_ms, copy_ms = times["plain"], times["library"], times["copy"]
+    rec = {"shape": (B, L, C, W), "x_strides": x.stride(), "dtype": str(x.dtype),
+           "bytes": nbytes,
            "bound_ms": bound[bound_by], "bound_by": bound_by, "plain_ms": plain_ms,
-           "library_ms": library_ms, "max_abs_err": err, "ms": {}}
+           "library_ms": library_ms, "copy_ms": copy_ms, "max_abs_err": err, "ms": {}}
     for m in tconv.MODES:
         ms = times[m]
         rec["ms"][m] = ms
@@ -624,7 +645,8 @@ def layer0_conv1d(conv, args, launches, report, entries, name) -> None:
               f"bound {bound[bound_by]:.4f} ms ({bound_by}), "
               f"{nbytes / ms / 1e6:.0f} GB/s")
     print(f"[serve-kernel] conv1d plain {plain_ms:.4f} ms, F.conv1d+silu "
-          f"{library_ms:.4f} ms, max|err| {err:.2e}")
+          f"{library_ms:.4f} ms, a copy of x into a contiguous tensor (the same "
+          f"bytes) {copy_ms:.4f} ms, max|err| {err:.2e}")
     entries.append({"name": name, "route": "cuda", "source": CONV_SOURCE,
                     "replaces": CONV_REPLACES, "launches": launches["conv1d_shuffle_w4"],
                     "max_abs_err": err, "ms": times["shuffle"], "plain_ms": plain_ms,
@@ -929,8 +951,10 @@ def main() -> int:
           f"bf16): one nvcc call: {fa_kernel.library.seconds:.1f} s; all four "
           f"builds together {build_s:.1f} s")
     conv_sass = sass_counts(str(conv_lib.path))
-    for key, k in conv.items():
+    conv_regs = register_counts(str(conv_lib.path))
+    for k in conv.values():
         inst = sass_instances(conv_sass, k.symbol)
+        regs = sass_instances(conv_regs, k.symbol)
         if len(inst) != 7:
             raise RuntimeError(f"{k.symbol}: {len(inst)} template instances in the SASS")
         shuffles = {i: c["shfl"] for i, c in inst.items()}
@@ -938,8 +962,13 @@ def main() -> int:
                 (k.spec.mode == "shuffle" and not all(shuffles.values())):
             raise RuntimeError(f"{k.symbol}: SHFL per instance {shuffles}")
         for i in ("bf16x8", "f32x4"):
-            print(f"[sass] {k.symbol:<18} {i:<7} SHFL {inst[i]['shfl']:>3} "
-                  f"LDG {inst[i]['ldg']:>3}")
+            # static counts over the march's S steps; per output vector (one
+            # lane's VEC channels at one position)
+            per = {cls: inst[i][cls] / tconv.conv1d.STEPS for cls in SASS_PER_OUTPUT}
+            inst[i] = dict(inst[i], per_output=per, **regs[i])
+            print(f"[sass] {k.symbol:<18} {i:<6} regs {regs[i]['regs']:>3} spill "
+                  f"{regs[i]['local']} | per output vector: "
+                  + " ".join(f"{cls} {v:.1f}" for cls, v in per.items()))
         report["sass"][k.symbol] = inst
     ssd_counts = sass_counts(str(ssd_kernel.library.path))
     ssd_tc = {f"{part.split('_')[0]} {i}": c

@@ -3,10 +3,11 @@ program, the shuffle schedule from the emulator's detection, and the
 CUDA code generator and launch wrapper.
 
 Replaces ``src/repro/kernels/conv1d/conv1d.py`` (the Pallas kernel).  The
-TPU kernel staged one halo tile and imitated the register shuffle with
-shifted slices of it; here the ``shuffle`` mode issues
-``__shfl_down_sync`` itself.  Which taps move, from where and by how far
-is not chosen by hand: the width-W conv is written as the stencil program
+TPU kernel staged one halo tile per grid step and imitated the register
+shuffle with shifted slices of it; here a warp marches along the sequence
+and the ``shuffle`` mode issues ``__shfl_down_sync``/``__shfl_up_sync``
+itself.  Which taps move, from where and by how far is not chosen by
+hand: the width-W conv is written as the stencil program
 ``y[i] = sum_t c_t * x[i - W + 1 + t]`` (the reference's
 ``tests/test_kernels.py::test_ptxasw_finds_conv_deltas``), lowered to
 PTX, emulated symbolically and searched for shuffle pairs; the kernel is
@@ -15,14 +16,18 @@ W - 1 taps covered with deltas 1..W-1) and is built only if that
 schedule equals the detection tap by tap (``synthesize_cuda``'s
 ``consistent``).  ``csrc/conv1d_common.cuh`` holds the layout (a warp is
 8 positions x 4 channel groups, so a position delta d is a lane delta
-4d), the masked loads, the shuffles and the launcher.
+4d), the march, the masked loads, the shuffles and the launcher.
+
+x may be a row-strided view (the model passes its in-projection's
+columns in place); :func:`vec_width` picks the widest vector that C,
+the strides and every base address allow.
 """
 
 from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -31,8 +36,14 @@ from repro_torch.core.frontend import stencil as dsl
 
 MODES = ("naive", "shuffle")
 
-#: sequence positions per CTA (``kWarpsL * kPos`` in ``conv1d_common.cuh``)
-CTA_POSITIONS = 16
+#: the warp's layout and the CTA's shape (``kPos``, ``kGroups``,
+#: ``kWarpsC``, ``kWarpsL`` in ``conv1d_common.cuh``)
+POSITIONS, GROUPS, WARPS_C, WARPS_L = 8, 4, 4, 2
+#: 8-position segments each warp marches over, and how many steps before
+#: its use a segment's source row is fetched: the best of a sweep on the
+#: served inputs, though every march of 2-8 segments came within a few
+#: per cent of it (PERF.md)
+STEPS, AHEAD = 4, 2
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -98,6 +109,10 @@ def make_spec(mode: str, W: int) -> KernelSpec:
             f"covered taps) disagrees with the emulator's detection "
             f"({plan.n_shuffles} pairs); refusing to build")
     row = plan.schedule[0]
+    if len(row.sources) != 1 or any(src != row.sources[0] or not 0 < d < POSITIONS
+                                    for _, src, d in row.covered):
+        raise ValueError(f"conv width {W}: the schedule {row} is not one source "
+                         f"row with covered taps less than a segment away")
     return KernelSpec(mode, W, tuple(row.sources), tuple(row.covered))
 
 
@@ -106,30 +121,52 @@ def _var(off: int) -> str:
 
 
 def kernel_source(spec: KernelSpec) -> str:
-    """CUDA source of one (mode, W) kernel template and its launcher."""
+    """CUDA source of one (mode, W) kernel template and its launcher: per
+    step of the march of ``STEPS`` segments, the fetches (``naive``: one
+    load per tap; ``shuffle``: the segment's source row from the ring
+    fetched ``AHEAD`` steps early, each covered tap by ``rc::covered``),
+    then the W multiply-adds."""
+    W, S, A = spec.W, STEPS, AHEAD
     pack = "rc::Pack<T, VEC>"
-    body = []
-    for off in spec.sources:
-        body.append(f"const {pack} {_var(off)} = rc::load_tap<T, VEC>(x, s, {off});")
-    for dst, src, delta in spec.covered:
-        body.append(f"const {pack} {_var(dst)} = rc::shfl_or_reload<T, VEC>("
-                    f"{_var(src)}, {delta}, x, s, {dst});")
-    for t in range(spec.W):
-        body.append(f"rc::tap<T, VEC>(acc, {_var(t - spec.W + 1)}, w, s, {t});")
-    ind = "\n  "
+    prologue, body = [], []
+    if spec.mode == "shuffle":
+        (src,) = spec.sources
+        fetch = f"rc::source_row<T, VEC, {W}, S>(x, s, {{}}, {src})"
+        prologue = [
+            f"{pack} row[S + 1];   // segment i's source row, fetched AHEAD steps early",
+            "#pragma unroll",
+            f"for (int i = 0; i <= AHEAD && i <= S; ++i) row[i] = {fetch.format('i')};"]
+        body.append(f"if (i + AHEAD + 1 <= S) row[i + AHEAD + 1] = "
+                    f"{fetch.format('i + AHEAD + 1')};")
+        body.append(f"const {pack} {_var(src)} = row[i];")
+        for dst, _, delta in spec.covered:
+            body.append(f"const {pack} {_var(dst)} = "
+                        f"rc::covered<T, VEC>(row[i], row[i + 1], {delta}, s);")
+    else:
+        for off in spec.sources:
+            body.append(f"const {pack} {_var(off)} = rc::load_tap<T, VEC>(x, s, i, {off});")
+    body += ["float acc[VEC];", "wb.init(acc);"]
+    body += [f"wb.tap(acc, {_var(t - W + 1)}, {t});" for t in range(W)]
+    body.append("rc::finish<T, VEC>(a, acc, s, i);")
+    i6 = "\n      "
     return (
-        f"// mode {spec.mode}, width {spec.W}; sources {list(spec.sources)}, "
-        f"covered (dst, src, delta) {[list(c) for c in spec.covered]}\n"
+        f"// mode {spec.mode}, width {W}, a march of {S} segments fetched {A} ahead; "
+        f"sources {list(spec.sources)}, covered (dst, src, delta) "
+        f"{[list(c) for c in spec.covered]}\n"
         f"template <typename T, int VEC>\n"
-        f"__global__ void __launch_bounds__(rc::kThreads) {spec.symbol}(\n"
-        f"    const T* __restrict__ x, const T* __restrict__ w,\n"
-        f"    const T* __restrict__ b, T* __restrict__ out, int L, int C, int act) {{\n"
-        f"  const rc::Site s = rc::site<VEC>(L, C);\n"
-        f"  float acc[VEC];\n"
-        f"  rc::init<T, VEC>(acc, b, s);\n"
-        f"  {ind.join(body)}\n"
-        f"  rc::finish<T, VEC>(out, acc, s, act);\n}}\n"
-        f"RC_LAUNCHER({spec.symbol})\n")
+        f"__global__ void __launch_bounds__(rc::kThreads) {spec.symbol}(const rc::Args a) {{\n"
+        f"  constexpr int S = {S}, AHEAD = {A};\n"
+        f"  const T* __restrict__ x = static_cast<const T*>(a.x);\n"
+        f"  for (int item = blockIdx.x; item < a.n_items; item += gridDim.x) {{\n"
+        f"    const rc::Site s = rc::site<VEC, S>(a, item);\n"
+        f"    const rc::Weights<T, VEC, {W}> wb(a, s);\n"
+        + "".join(f"{'' if line[0] == '#' else '    '}{line}\n" for line in prologue)
+        + f"#pragma unroll\n"
+        f"    for (int i = 0; i < S; ++i) {{\n"
+        f"      if (rc::past_end(s, i)) break;{i6}{i6.join(body)}\n"
+        f"    }}\n"
+        f"  }}\n}}\n"
+        f"RC_LAUNCHER({spec.symbol}, {S})\n")
 
 
 def cuda_source(specs: Sequence[KernelSpec]) -> str:
@@ -138,21 +175,24 @@ def cuda_source(specs: Sequence[KernelSpec]) -> str:
                      + [kernel_source(s) for s in specs])
 
 
-def _vec_width(tensors: Sequence[torch.Tensor], C: int) -> int:
-    """The widest vector (at most 16 bytes) that divides C and to which
-    every base address is aligned."""
-    itemsize = tensors[0].element_size()
+def vec_width(itemsize: int, C: int, strides: Sequence[int],
+              addresses: Sequence[int]) -> int:
+    """The widest vector of elements (at most 16 bytes) that divides C and
+    every element stride in ``strides`` and to which every byte address in
+    ``addresses`` is aligned: a stride or base that breaks 16-byte
+    alignment gets a narrower vector, not an error."""
     vec = 16 // itemsize
-    while vec > 1 and (C % vec or any(t.data_ptr() % (vec * itemsize)
-                                      for t in tensors)):
+    while vec > 1 and (C % vec or any(st % vec for st in strides)
+                       or any(ad % (vec * itemsize) for ad in addresses)):
         vec //= 2
     return vec
 
 
 class Conv1dKernel:
     """A built (mode, W) kernel.  Calling it launches the kernel on the
-    current stream and adds one to ``launches``; nothing else touches
-    the count."""
+    current stream, as many CTAs as fit on the card at once walking the
+    items (or one per item where there are fewer), and adds one to
+    ``launches``; nothing else touches the count."""
 
     def __init__(self, spec: KernelSpec, library: Library):
         self.spec = spec
@@ -160,9 +200,25 @@ class Conv1dKernel:
         self.library = library
         self.launches = 0
         self._fn = getattr(library.lib, f"launch_{spec.symbol}")
-        self._fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+        self._fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
+                             + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
                              + [ctypes.c_void_p])
         self._fn.restype = ctypes.c_int
+        self._resident = getattr(library.lib, f"resident_{spec.symbol}")
+        self._resident.argtypes = [ctypes.c_int, ctypes.c_int]
+        self._resident.restype = ctypes.c_int
+        self._ctas: Dict[Tuple[torch.device, int, int], int] = {}
+
+    def resident_ctas(self, device: torch.device, dtype: torch.dtype, vec: int) -> int:
+        """CTAs of the (dtype, vec) instance that fit on ``device`` at once."""
+        key = (device, _DTYPE_CODE[dtype], vec)
+        if key not in self._ctas:
+            with torch.cuda.device(device):
+                n = self._resident(key[1], vec)
+            if n <= 0:
+                raise RuntimeError(f"{self.symbol}: occupancy query failed ({n})")
+            self._ctas[key] = n
+        return self._ctas[key]
 
     def __call__(self, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  activation: bool = True) -> torch.Tensor:
@@ -174,25 +230,32 @@ class Conv1dKernel:
             if t.dtype not in _DTYPE_CODE or t.dtype != x.dtype:
                 raise TypeError(f"{name}: expected float32 or bfloat16 like x, "
                                 f"got {t.dtype} (x is {x.dtype})")
-            if not t.is_contiguous():
-                raise ValueError(f"{name}: expected a contiguous tensor")
+        if not (w.is_contiguous() and b.is_contiguous()):
+            raise ValueError("w, b: expected contiguous tensors")
         if x.ndim != 3:
             raise ValueError(f"x: expected (B, L, C), got shape {tuple(x.shape)}")
         B, L, C = x.shape
+        if C > 1 and x.stride(2) != 1:
+            raise ValueError(f"x: expected contiguous channels, got strides {x.stride()}")
         if tuple(w.shape) != (W, C) or tuple(b.shape) != (C,):
             raise ValueError(f"w {tuple(w.shape)} / b {tuple(b.shape)}: "
                              f"expected ({W}, {C}) / ({C},)")
-        if B > 65535 or -(-L // CTA_POSITIONS) > 65535 or B * L * C >= 2 ** 62:
-            raise ValueError(f"shape {tuple(x.shape)} exceeds the launch grid")
-        out = torch.empty_like(x)
+        out = torch.empty((B, L, C), dtype=x.dtype, device=dev)
         if out.numel() == 0:
             return out
-        vec = _vec_width((x, w, b, out), C)
+        strides = [st for st, n in zip(x.stride()[:2], (B, L)) if n > 1]
+        vec = vec_width(x.element_size(), C, strides,
+                        [t.data_ptr() for t in (x, w, b, out)])
+        tiles_c = -(-C // (WARPS_C * GROUPS * vec))
+        if tiles_c * -(-L // (WARPS_L * POSITIONS * STEPS)) * B >= 2 ** 31 \
+                or B * L * C >= 2 ** 62:
+            raise ValueError(f"shape {tuple(x.shape)} exceeds the launch grid")
+        ctas = self.resident_ctas(dev, x.dtype, vec)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = self._fn(x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                          out.data_ptr(), B, L, C, _DTYPE_CODE[x.dtype], vec,
-                          int(bool(activation)), stream)
+            rc = self._fn(x.data_ptr(), x.stride(0), x.stride(1), w.data_ptr(),
+                          b.data_ptr(), out.data_ptr(), B, L, C, _DTYPE_CODE[x.dtype],
+                          vec, int(bool(activation)), ctas, stream)
         if rc != 0:
             raise RuntimeError(f"{self.symbol}: kernel launch failed "
                                f"(cudaError {rc})")

@@ -6,7 +6,9 @@ and ``interpret`` knobs.  A tensor on the CPU takes the kernel's plain
 version (:mod:`.ref`); a tensor on the card launches the (mode, W)
 kernel, built at first use or in bulk by :func:`build_kernels`, or
 raises.  Neither the causal halo nor the ragged edge is padded: the
-reference's padding would copy the whole (B, L, C) input.
+reference's padding would copy the whole (B, L, C) input.  x may be a
+view with contiguous channels (a column range of a wider tensor): the
+kernel reads it in place.
 """
 
 from __future__ import annotations

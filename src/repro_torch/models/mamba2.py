@@ -7,7 +7,11 @@ calls the jnp oracles of its Pallas kernels (``causal_conv1d_ref`` and
 ``ssd_chunked``), ``Mamba2.forward`` calls the port's kernels: on a CUDA
 tensor the hand-written CUDA conv1d (its ``shuffle`` mode, the paper's
 technique) and SSD scan, on a CPU tensor their plain PyTorch versions.
-Decode is plain PyTorch, as it is plain jnp in the reference.  The projections are ``torch.matmul``.
+The conv reads its input, xin|B|C, in place as the in-projection's
+column range, where the reference concatenates the three; the conv state
+kept for decode is a copy of that range's last W - 1 rows.  Decode is
+plain PyTorch, as it is plain jnp in the reference.  The projections are
+``torch.matmul``.
 """
 
 from __future__ import annotations
@@ -80,10 +84,22 @@ def conv1d_step(x_t: torch.Tensor, conv_state: torch.Tensor,
     return F.silu(y), window[:, 1:]
 
 
+def conv_state_after(conv_in: torch.Tensor, W: int) -> torch.Tensor:
+    """The decode conv state after a prefill: the last W - 1 rows of the
+    conv input (B, L, C), zeros on the left only when L < W - 1; a copy
+    of those rows alone, so the in-projection it views is not kept."""
+    L = conv_in.shape[1]
+    if L >= W - 1:
+        return conv_in[:, L - (W - 1):].clone(memory_format=torch.contiguous_format)
+    return F.pad(conv_in, (0, 0, W - 1 - L, 0))
+
+
 def _split_proj(params: Params, x: torch.Tensor, cfg: SSMConfig):
-    di, ng, ns = cfg.d_inner, cfg.n_groups, cfg.d_state
+    """(z, conv input, dt): views of the in-projection's columns; the conv
+    input is xin|B|C, one contiguous column range."""
+    di = cfg.d_inner
     proj = torch.matmul(x, params["w_in"])
-    return torch.split(proj, [di, di, ng * ns, ng * ns, cfg.n_heads], dim=-1)
+    return torch.split(proj, [di, cfg.conv_dim, cfg.n_heads], dim=-1)
 
 
 class Mamba2(nn.Module):
@@ -106,8 +122,7 @@ class Mamba2(nn.Module):
         cfg, p = self.cfg, self._params()
         Bsz, L, _ = x.shape
         H, P, ng, ns = cfg.n_heads, cfg.head_dim, cfg.n_groups, cfg.d_state
-        z, xin, Bc, Cc, dt = _split_proj(p, x, cfg)
-        conv_in = torch.cat([xin, Bc, Cc], dim=-1)
+        z, conv_in, dt = _split_proj(p, x, cfg)       # views: read in place
         conv_out = causal_conv1d(conv_in, p["conv_w"], p["conv_b"])
         xin, Bc, Cc = torch.split(conv_out, [cfg.d_inner, ng * ns, ng * ns], dim=-1)
         A = -torch.exp(p["a_log"])                               # (H,) negative
@@ -121,11 +136,7 @@ class Mamba2(nn.Module):
         y = rmsnorm(y * F.silu(z), p["norm_scale"])
         out = torch.matmul(y, p["w_out"]).to(x.dtype)
         if return_state:
-            W1 = cfg.conv_width - 1
-            new_conv_state = torch.cat(
-                [conv_in.new_zeros((Bsz, W1, cfg.conv_dim)), conv_in],
-                dim=1)[:, conv_in.shape[1]:]
-            return out, (new_conv_state, s_final)
+            return out, (conv_state_after(conv_in, cfg.conv_width), s_final)
         return out
 
     def decode_step(self, x_t: torch.Tensor, state):
@@ -134,8 +145,7 @@ class Mamba2(nn.Module):
         conv_state, ssm_state = state
         Bsz = x_t.shape[0]
         H, P, ng, ns = cfg.n_heads, cfg.head_dim, cfg.n_groups, cfg.d_state
-        z, xin, Bc, Cc, dt = _split_proj(p, x_t, cfg)
-        conv_in = torch.cat([xin, Bc, Cc], dim=-1)                # (B, conv_dim)
+        z, conv_in, dt = _split_proj(p, x_t, cfg)                # (B, conv_dim)
         conv_out, conv_state = conv1d_step(conv_in, conv_state,
                                            p["conv_w"], p["conv_b"])
         xin, Bc, Cc = torch.split(conv_out, [cfg.d_inner, ng * ns, ng * ns], dim=-1)

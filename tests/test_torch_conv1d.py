@@ -3,6 +3,8 @@ against the Pallas kernel (interpret mode, both modes) and its jnp
 oracle; the shuffle schedule against the emulator's detection; the
 analytic traffic model against the reference's."""
 
+from dataclasses import replace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -71,11 +73,18 @@ def test_shuffle_schedule_is_the_detection(W):
     assert sorted(d for _, _, d in spec.covered) == list(range(1, W))
     assert all(dst - src == d for dst, src, d in spec.covered)
     src = tconv.kernel_source(spec)
-    assert src.count("rc::shfl_or_reload") == W - 1
-    for dst, s, d in spec.covered:
-        assert f"shfl_or_reload<T, VEC>({tconv_gen._var(s)}, {d}, x, s, {dst})" in src
+    # one source row per segment, from the prefetched ring; each covered
+    # tap by one rc::covered from this segment's and the next one's row
+    assert src.count("rc::source_row<") == 2 and "rc::load_tap" not in src
+    assert f"const rc::Pack<T, VEC> {tconv_gen._var(1 - W)} = row[i];" in src
+    assert src.count("rc::covered<") == W - 1
+    for dst, _, d in spec.covered:
+        assert (f"{tconv_gen._var(dst)} = rc::covered<T, VEC>(row[i], row[i + 1], "
+                f"{d}, s);") in src
+    assert src.count("wb.tap(") == W and f"RC_LAUNCHER({spec.symbol}, " in src
     naive = tconv.kernel_source(tconv.make_spec("naive", W))
-    assert "shfl" not in naive and naive.count("rc::load_tap") == W
+    assert "rc::covered" not in naive and "row[" not in naive
+    assert naive.count("rc::load_tap") == W and naive.count("wb.tap(") == W
 
 
 def test_reference_program_deltas():
@@ -102,44 +111,180 @@ def test_shuffle_build_refuses_a_disagreeing_detection(monkeypatch):
         tconv.make_spec("shuffle", 4)
 
 
-@pytest.mark.parametrize("L", [1, 5, 8, 13, 37])
-@pytest.mark.parametrize("W", [3, 4])
-def test_warp_replay_of_the_shuffle_schedule(L, W):
-    """Replay the shuffle kernel's warp lane by lane (8 positions x 4
-    channel groups, ``__shfl_down_sync`` by 4 * delta, lanes past the
-    warp reloading, loads masked on their own position) over a ragged L,
-    and check every valid lane gets exactly its own W taps."""
-    spec = tconv.make_spec("shuffle", W)
-    pos, groups = 8, 4
-    xs = np.arange(L, dtype=np.float64) + 1.0          # x[l], nonzero
+def _corner_next(d):
+    """The kernel's corner source: the next segment's source row, lane
+    ``lane - (32 - 4d)`` (``__shfl_up_sync`` by ``32 - 4d``)."""
+    return "next", 32 - 4 * d
 
-    def load(l, off):
-        q = l + off
-        return xs[q] if 0 <= q < L else 0.0
 
-    for warp_l0 in range(0, L, pos):
-        lanes = [(p, g) for p in range(pos) for g in range(groups)]
-        held = {}
-        for p, g in lanes:
-            for off in spec.sources:
-                held[(p, g, off)] = load(warp_l0 + p, off)
-        for dst, src, d in spec.covered:
-            for p, g in lanes:
-                lane = p * groups + g
-                other = lane + groups * d
-                if other < 32:
-                    v = held[(other // groups, other % groups, src)]
+def _masked(pos, L):
+    """``load_tap``'s own test: a position that yields zeros, not a load."""
+    return (pos < 0) | (pos >= L)
+
+
+def _replay_march(spec, L, corner=_corner_next, masked=_masked):
+    """Replay the kernel's march lane by lane along L, as
+    ``csrc/conv1d_common.cuh`` runs it for one channel tile: CTAs of
+    ``WARPS_L`` warps, each marching over ``STEPS`` segments of 8
+    positions x 4 channel groups; the march stops at the first step past
+    L for the whole CTA.  ``shuffle``: segment i's source row fetched
+    ``AHEAD`` steps early (of the extra row ``STEPS`` only lanes p < W - 1
+    load), each covered tap taken by ``__shfl_down_sync`` by 4d from the
+    current row and, for a corner lane (p + d >= 8), from the row
+    ``corner(d)`` names by ``__shfl_up_sync``; ``naive``: one load per
+    tap.  A load dereferences x at every position that ``masked`` lets
+    through, and each such position must lie in [0, L); every valid lane
+    must get exactly its own W taps, and every output position be stored
+    once per channel group."""
+    W, S, A = spec.W, tconv_gen.STEPS, tconv_gen.AHEAD
+    P, G = tconv_gen.POSITIONS, tconv_gen.GROUPS
+    x = np.arange(L * G, dtype=np.float64).reshape(L, G) + 1.0   # x[l, g], nonzero
+    lanes = np.arange(32)
+    p, g = lanes // G, lanes % G
+
+    def tap(pos):
+        """What a lane should hold for the tap at ``pos``: its element, or
+        zero outside the sequence."""
+        inside = (pos >= 0) & (pos < L)
+        return np.where(inside, x[np.clip(pos, 0, L - 1), g], 0.0)
+
+    def load(pos, lanes_that_load=True):
+        """load_tap: the lanes whose position ``masked`` lets through
+        dereference x there; the others hold zeros."""
+        deref = ~masked(pos, L) & lanes_that_load
+        assert np.all((pos[deref] >= 0) & (pos[deref] < L)), \
+            f"a load at {sorted(set(pos[deref][(pos[deref] < 0) | (pos[deref] >= L)]))}"
+        out = np.zeros(32)
+        out[deref] = x[pos[deref], g[deref]]
+        return out
+
+    def down(v, n):                        # __shfl_down_sync
+        src = lanes + n
+        return np.where(src < 32, v[np.minimum(src, 31)], v)
+
+    def up(v, n):                          # __shfl_up_sync
+        src = lanes - n
+        return np.where(src >= 0, v[np.maximum(src, 0)], v)
+
+    stored = np.zeros((L, G), dtype=int)
+    for lcta in range(0, L, tconv_gen.WARPS_L * P * S):
+        for wl in range(tconv_gen.WARPS_L):
+            l = lcta + wl * P * S + p                 # the lane's first output
+            row = {}
+
+            def source_row(i):
+                return load(l + P * i + spec.sources[0], (i < S) | (p < W - 1))
+
+            if spec.mode == "shuffle":
+                for i in range(min(A, S) + 1):
+                    row[i] = source_row(i)
+            for i in range(S):
+                if lcta + P * i >= L:                  # past_end
+                    break
+                held = {}
+                if spec.mode == "shuffle":
+                    if i + A + 1 <= S:
+                        row[i + A + 1] = source_row(i + A + 1)
+                    held[spec.sources[0]] = row[i]
+                    for dst, _, d in spec.covered:
+                        which, n = corner(d)
+                        other = row[i + 1] if which == "next" else row[i]
+                        held[dst] = np.where(p + d >= P, up(other, n), down(row[i], G * d))
                 else:
-                    v = held[(p, g, src)]
-                if p + d >= pos:
-                    v = load(warp_l0 + p, dst)
-                held[(p, g, dst)] = v
-        for p, g in lanes:
-            l = warp_l0 + p
-            if l >= L:
-                continue
-            for off in range(1 - W, 1):
-                assert held[(p, g, off)] == load(l, off), (l, off)
+                    for off in spec.sources:
+                        held[off] = load(l + P * i + off)
+                out = l + P * i
+                valid = out < L
+                for off in range(1 - W, 1):
+                    want = tap(out + off)
+                    assert np.array_equal(held[off][valid], want[valid]), (i, off)
+                np.add.at(stored, (out[valid], g[valid]), 1)
+    assert (stored == 1).all(), "an output stored other than once"
+
+
+def _lengths():
+    """The original ragged lengths, then 1, 8S - 1, 8S, 8S + 1 and one
+    ragged across CTAs, for the march of S segments."""
+    S = tconv_gen.STEPS
+    per_cta = tconv_gen.WARPS_L * tconv_gen.POSITIONS * S
+    return sorted({1, 5, 8, 13, 37, 8 * S - 1, 8 * S, 8 * S + 1, 2 * per_cta + 37})
+
+
+@pytest.mark.parametrize("mode, W, L", [
+    # the shuffle mode's cases keep their ids "W-L"
+    pytest.param(mode, W, L, id=f"{W}-{L}" if mode == "shuffle" else f"{mode}-{W}-{L}")
+    for mode in tconv.MODES for W in (3, 4) for L in _lengths()])
+def test_warp_replay_of_the_shuffle_schedule(mode, W, L):
+    """The march, replayed lane by lane (see :func:`_replay_march`) at
+    lengths ragged against the segment, the march and the CTA."""
+    _replay_march(tconv.make_spec(mode, W), L)
+
+
+_RAGGED_L = 2 * tconv_gen.WARPS_L * tconv_gen.POSITIONS * tconv_gen.STEPS + 5
+
+
+@pytest.mark.parametrize("fault", ["delta", "corner_row", "corner_lane"])
+def test_replay_sees_a_wrong_shuffle(fault):
+    """The replay is not blind: a schedule whose deltas are one lane off,
+    corner taps taken from the current segment's row, or from the next
+    row one position off, hand valid lanes another position's tap."""
+    spec = tconv.make_spec("shuffle", 4)
+    corner = _corner_next
+    if fault == "delta":
+        spec = replace(spec, covered=tuple((dst, src, d + 1) for dst, src, d in spec.covered))
+    elif fault == "corner_row":
+        def corner(d):
+            return "current", 32 - 4 * d
+    else:
+        def corner(d):
+            return "next", 32 - 4 * d - 4
+    with pytest.raises(AssertionError):
+        _replay_march(spec, _RAGGED_L, corner)
+
+
+@pytest.mark.parametrize("side", ["before", "past"])
+@pytest.mark.parametrize("mode", tconv.MODES)
+def test_replay_sees_a_missing_mask(side, mode):
+    """A load without its test of the causal halo (before position 0) or
+    of the ragged end (past L) dereferences x outside [0, L), and the
+    replay says where."""
+    def masked(pos, L):
+        return pos >= L if side == "before" else pos < 0
+
+    with pytest.raises(AssertionError, match="a load at"):
+        _replay_march(tconv.make_spec(mode, 4), _RAGGED_L, masked=masked)
+
+
+@pytest.mark.parametrize("case", [
+    # (itemsize, C, strides, addresses, want)
+    (2, 4352, (1024 * 8512, 8512), (0, 8192), 8),       # Mamba-2's proj columns
+    (2, 4224, (1024 * 8384, 8384), (0, 8192), 8),       # Zamba2's
+    (2, 4352, (1024 * 4352, 4352), (0,), 8),            # contiguous
+    (2, 4352, (8511,), (0,), 1),                        # odd row stride
+    (2, 4352, (8514,), (0,), 2),                        # row stride 4 bytes aligned
+    (2, 4352, (8516,), (0,), 4),
+    (2, 4352, (8512,), (2,), 1),                        # base 2 bytes off
+    (2, 4352, (8512,), (8,), 4),
+    (2, 4350, (4350,), (0,), 2),                        # C not a multiple of 4
+    (4, 4352, (8512,), (0,), 4),
+    (4, 77, (77,), (0,), 1),
+    (4, 6, (12,), (0, 16), 2),
+    (4, 4352, (4352 * 5,), (0, 4), 1),
+])
+def test_vec_width(case):
+    itemsize, C, strides, addresses, want = case
+    assert tconv_gen.vec_width(itemsize, C, strides, addresses) == want
+
+
+def test_plain_reads_a_column_slice():
+    """The CPU path takes the strided view the model passes (a column range
+    of a wider tensor) and gives what it gives on the same data copied."""
+    (_, _, _), (x, w, b) = _inputs((2, 19, 30, 4), np.float32, seed=3)
+    wide = torch.nn.functional.pad(x, (5, 7))
+    view = wide[..., 5:35]
+    assert view.stride() == (19 * 42, 42, 1)
+    torch.testing.assert_close(tconv.causal_conv1d(view, w, b),
+                               tconv.causal_conv1d(x, w, b), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("args", [(4096, 4096, 4, "naive"), (4096, 4096, 4, "shuffle"),

@@ -142,8 +142,13 @@ def _randn(shape, dtype, rng, scale=1.0):
         (rng.standard_normal(shape) * scale).astype(np.float32)).to("cuda", dtype)
 
 
+_MARCH = tconv.conv1d.STEPS * tconv.conv1d.POSITIONS   # positions per warp's march
+
+
 @pytest.mark.parametrize("shape", [(2, 1000, 4352, 4), (3, 37, 77, 4),
-                                   (1, 129, 200, 3), (4, 16, 6, 4), (1, 5, 24, 4)])
+                                   (1, 129, 200, 3), (4, 16, 6, 4), (1, 5, 24, 4),
+                                   (3, 1, 77, 4), (2, _MARCH - 1, 200, 4),
+                                   (2, _MARCH + 1, 136, 3)])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_conv1d_kernels_match_plain(card, shape, dtype):
     """Both modes against the plain version at ragged L and C (and C that
@@ -181,12 +186,40 @@ def test_conv1d_wrapper_rejects_bad_inputs(card):
         k(x.double(), w.double(), b.double())
     with pytest.raises(TypeError):
         k(x, w.bfloat16(), b)
+    with pytest.raises(ValueError, match="contiguous channels"):
+        k(_randn((2, 16, 16), torch.float32, rng)[..., ::2], w, b)   # last stride 2
     with pytest.raises(ValueError):
         k(x.transpose(1, 2), w, b)
     with pytest.raises(ValueError):
         k(x.cpu(), w, b)
     with pytest.raises(ValueError):
         k(x, w[:3], b)
+    with pytest.raises(ValueError):
+        k(x, w.t().contiguous().t(), b)
+
+
+@pytest.mark.parametrize("pad", [(4096, 64), (4096, 65), (4097, 63)])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_conv1d_reads_a_column_slice_in_place(card, pad, dtype):
+    """Both modes on x as a column range of a wider tensor, as the model
+    passes its in-projection: bitwise equal to the same data made
+    contiguous.  (4096, 64) keeps the row stride and the base 16-byte
+    aligned; (4096, 65) makes the row stride odd and (4097, 63) the base,
+    so the kernel takes narrower vectors."""
+    left, right = pad
+    B, L, C, W = 2, 2 * _MARCH + 5, 456, 4
+    rng = np.random.default_rng(left)
+    wide = _randn((B, L, left + C + right), DTYPES[dtype], rng)
+    view = wide[..., left:left + C]
+    assert view.stride() == (L * (left + C + right), left + C + right, 1)
+    w = _randn((W, C), DTYPES[dtype], rng)
+    b = _randn((C,), DTYPES[dtype], rng)
+    dense = view.contiguous()
+    for k in tconv.build_kernels([(m, W) for m in tconv.MODES]):
+        got, want = k(view, w, b), k(dense, w, b)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), k.symbol
+        assert got.is_contiguous()
 
 
 def _ssd_inputs(B, L, H, P, N, dtype, seed):

@@ -78,6 +78,48 @@ def test_prefill_matches_reference(pair, S):
     assert (tc["pos"].numpy() == np.asarray(jc["pos"])).all()
 
 
+@pytest.mark.parametrize("S", [2, 48])
+def test_conv_state_is_the_last_rows_of_the_conv_input(pair, monkeypatch, S):
+    """The conv reads the in-projection's xin|B|C columns in place (a view,
+    no concatenation), and the conv state a prefill returns is exactly the
+    reference's ``concatenate([zeros, conv_in])[:, -(W - 1):]`` of each
+    layer's conv input: the last W - 1 rows, zeros on the left only when
+    S < W - 1 (S = 2).  Against the reference's cache, and the logits of
+    the decode step that follows, within float32 rounding."""
+    import repro_torch.models.mamba2 as m2
+
+    jm, params, model = pair
+    cfg = model.cfg
+    W, C = cfg.conv_width, model.ssm_cfg().conv_dim
+    seen = []
+    real = m2.causal_conv1d
+
+    def spy(x, w, b, **kw):
+        seen.append(x)
+        return real(x, w, b, **kw)
+
+    monkeypatch.setattr(m2, "causal_conv1d", spy)
+    toks = _tokens(cfg, 2, S, seed=S + 1)
+    jl, jc = jm.prefill(params, {"tokens": jnp.asarray(toks)})
+    tl, tc = model.prefill({"tokens": torch.from_numpy(toks)})
+    assert len(seen) == cfg.n_layers
+    for i, conv_in in enumerate(seen):
+        d_in_proj = model.blocks[i].mamba.w_in.shape[1]
+        # a view into the whole in-projection's storage
+        assert conv_in.stride() == (S * d_in_proj, d_in_proj, 1)
+        assert conv_in.untyped_storage().nbytes() == 2 * S * d_in_proj * 4
+        want = jnp.concatenate([jnp.zeros((2, W - 1, C), jnp.float32),
+                                jnp.asarray(conv_in.numpy())], axis=1)[:, -(W - 1):]
+        np.testing.assert_array_equal(tc["conv"][i].numpy(), np.asarray(want))
+    if S < W - 1:
+        assert not tc["conv"][:, :, :W - 1 - S].any()
+    np.testing.assert_allclose(tc["conv"].numpy(), np.asarray(jc["conv"]), **TOL)
+    nxt = np.argmax(np.asarray(jl), -1).astype(np.int32)
+    jl2, _ = jm.decode_step(params, jnp.asarray(nxt), jc)
+    tl2, _ = model.decode_step(torch.from_numpy(nxt), tc)
+    np.testing.assert_allclose(tl2.numpy(), np.asarray(jl2), **TOL)
+
+
 def test_init_cache_matches_reference(pair):
     jm, _, model = pair
     want = jm.init_cache(3, 40)
