@@ -60,7 +60,16 @@ Phases, each fatal on failure:
    ``scaled_dot_product_attention``); the reduced 5-layer model (two
    supercells and a trailing block) on the card against the CPU; f32
    continuity at full width;
-7. a ``kernels`` JSON line, and as the last line the device record.
+7. the dense serving path, the same way: olmo-1b (16 layers, MHA 16/16)
+   and then yi-9b (48 layers, GQA 32/4), both at Dh 128 and published
+   widths, serve the same traffic (per prefill one flash-attention launch
+   per layer, all on the tensor-core instance, and no conv1d or SSD
+   launch); the first flash-attention call's inputs are captured, held
+   against the plain version and timed beside ``scaled_dot_product_attention``;
+   the reduced model on the card against the CPU (logits, greedy tokens
+   and the loss), also for starcoder2-3b, which runs reduced only; f32
+   continuity at full width for olmo-1b;
+8. a ``kernels`` JSON line, and as the last line the device record.
 
 Run from the repository root:  python3 chip_smoke.py
 Needs one CUDA device and nvcc for sm_90a; exits non-zero without them.
@@ -100,6 +109,11 @@ SSD_SOURCE = "src/repro_torch/kernels/ssd/csrc/ssd.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:33"
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 MAMBA, HYBRID = "mamba2-1.3b", "zamba2-1.2b"
+DENSE = ("olmo-1b", "yi-9b")                        # served at full width
+REDUCED_ONLY = ("starcoder2-3b",)                   # card vs CPU, reduced
+# f32 continuity at full width; Yi-9B in f32 (34 GB) would hold nothing
+# about the dense k/v cache that olmo-1b's run does not
+CONTINUITY_ARCHS = (MAMBA, HYBRID, "olmo-1b")
 SERVE = dict(batch=4, prompt_len=1024, gen=32)      # 4 chunks of 256 per prompt
 CONV_TOL = {"float32": 1e-5, "bfloat16": 5e-2}      # the reference kernel tests'
 SSD_TOL = {"float32": 1e-4, "bfloat16": 8e-2}       # the reference kernel tests'
@@ -113,11 +127,13 @@ FLASH_SHAPES = [(2, 64, 64, 4, 2, 16, True), (1, 100, 100, 4, 4, 8, True),
                 (2, 200, 200, 8, 2, 128, True), (1, 300, 177, 4, 2, 64, True),
                 (1, 130, 250, 8, 2, 128, True), (4, 1024, 1024, 32, 32, 64, True)]
 # f32 continuity at full width: prefill 512 vs prefill 256 + 256 decode
-# steps, 48 layers.  Both sides are exact float32 algorithms that sum in
-# other orders (a chunked scan against a recurrence, batched against
-# single-row matmuls); rounding of ~1e-7 per operation grows over 256
-# steps and 48 layers to well under 1e-3 on logits of magnitude ~1, while
-# a wrong carried state or conv window moves them by O(0.1).
+# steps, 48 layers (16 for olmo-1b).  Both sides are exact float32
+# algorithms that sum in other orders (a chunked scan against a
+# recurrence, the flash kernel's online softmax against a plain one,
+# batched against single-row matmuls); rounding of ~1e-7 per operation
+# grows over 256 steps and 48 layers to well under 1e-3 on logits of
+# magnitude ~1, while a wrong carried state, conv window or k/v row moves
+# them by O(0.1).
 CONTINUITY_TOL = 1e-3
 
 
@@ -433,8 +449,8 @@ def flash_parity(fa_kernel, report) -> None:
 
 def reduced_card_vs_cpu(report, arch: str) -> None:
     """The reduced model on the card (every kernel) against the plain path
-    on the CPU with the same weights: logits and greedy tokens.  The
-    hybrid keeps 5 layers: two supercells and a trailing block."""
+    on the CPU with the same weights: logits, greedy tokens and the loss.
+    The hybrid keeps 5 layers: two supercells and a trailing block."""
     import numpy as np
     import torch
 
@@ -456,9 +472,16 @@ def reduced_card_vs_cpu(report, arch: str) -> None:
     if not torch.equal(generate(gpu, {"tokens": toks.cuda()}, 8).cpu(),
                        generate(cpu, {"tokens": toks}, 8)):
         raise RuntimeError(f"reduced {arch}: greedy tokens differ card vs CPU")
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+    with torch.inference_mode():
+        loss, ref_loss = gpu.loss(batch)[0].cpu(), cpu.loss(batch)[0]
+    loss_err = float((loss - ref_loss).abs())
+    torch.testing.assert_close(loss, ref_loss, rtol=1e-4, atol=1e-4)
     report["reduced_card_vs_cpu_err"] = err
+    report["reduced_loss_err"] = loss_err
     print(f"[serve] reduced {arch} ({rcfg.n_layers} layers) on the card vs plain on "
-          f"the CPU: max|err| logits {err:.2e}, greedy tokens equal")
+          f"the CPU: max|err| logits {err:.2e}, greedy tokens equal, loss "
+          f"{float(ref_loss):.4f} |err| {loss_err:.2e}")
 
 
 def prefill_split(model, batch, arch: str) -> dict:
@@ -732,10 +755,10 @@ def layer0_ssd(ssd_kernel, args, launches, report, entries, name) -> None:
           + ", ".join(f"{k.split('::')[-1]} {v:.1f} us" for k, v in passes.items()))
 
 
-def layer0_flash(fa_kernel, args, launches, report, entries) -> None:
-    """The flash-attention kernel on the first shared-attention call's
-    inputs: parity with the plain version, time beside the bound, the
-    plain version and ``scaled_dot_product_attention`` on the same
+def layer0_flash(fa_kernel, args, launches, report, entries, arch) -> None:
+    """The flash-attention kernel on the inputs of ``arch``'s first
+    attention call: parity with the plain version, time beside the bound,
+    the plain version and ``scaled_dot_product_attention`` on the same
     tensors transposed to (B, H, S, Dh) outside the timed call."""
     import torch
     import torch.nn.functional as F
@@ -752,7 +775,7 @@ def layer0_flash(fa_kernel, args, launches, report, entries) -> None:
     torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
     err = float((out.float() - want.float()).abs().max())
     instance = tfa.select_instance(q, k, v)
-    rounded = flash_rounded("flash_attention, the first shared-attention call", instance,
+    rounded = flash_rounded(f"flash_attention, {arch}'s first call", instance,
                             out, q, k, v, causal)
     G = H // KV
     qt = q.transpose(1, 2).contiguous()
@@ -792,12 +815,12 @@ def layer0_flash(fa_kernel, args, launches, report, entries) -> None:
         "kernel_flops": kernel_flops, "bound_ms": bound[bound_by],
         "bound_by": bound_by, "ms": ms, "plain_ms": plain_ms,
         "library_ms": library_ms, "max_abs_err": err, "rounded": rounded}
-    entries.append({"name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
+    entries.append({"name": f"flash_attention[{arch}]", "route": "cuda", "source": FLASH_SOURCE,
                     "replaces": FLASH_REPLACES, "launches": launches["flash_attention"],
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound[bound_by], "bound_by": bound_by,
                     "library_ms": library_ms})
-    print(f"[serve-kernel] flash_attention {(B, Sq, Sk, H, KV, Dh)} causal {causal} "
+    print(f"[serve-kernel] flash_attention [{arch}] {(B, Sq, Sk, H, KV, Dh)} causal {causal} "
           f"{q.dtype} ({instance}) {ms:.4f} ms, bound {bound[bound_by]:.4f} ms ({bound_by}; "
           f"{nbytes / 1e6:.1f} MB, needs {flops / 1e9:.2f} GFLOP, executes "
           f"{kernel_flops / 1e9:.2f}) at {kernel_flops / ms / 1e9:.1f} TFLOP/s; "
@@ -809,7 +832,7 @@ def layer0_flash(fa_kernel, args, launches, report, entries) -> None:
 def continuity(report, arch: str) -> None:
     """float32 at full width: the last logits of a 512-token prefill equal
     those of a 256-token prefill followed by 256 decode steps, which holds
-    the SSD kernel's final state, the conv state and (hybrid) the
+    the SSD kernel's final state, the conv state and (hybrid, dense) the
     attention k/v cache against plain decode."""
     import torch
 
@@ -839,32 +862,38 @@ def continuity(report, arch: str) -> None:
 
 
 def serving_path(arch, kernels, report, entries) -> None:
-    """Phases 5 and 6.  The small-input check runs first and also warms the
+    """Phases 5-7.  The small-input check runs first and also warms the
     card (cuBLAS, the kernels' modules) before the timed full-width runs.
-    Entries of the hybrid's conv1d and SSD carry the arch in their name."""
+    Entries other than Mamba-2's carry the arch in their name."""
     import torch
 
     from repro_torch.configs import get_config
 
     cfg = get_config(arch)
     # every SSD and flash-attention call of the served run on its tensor-core
-    # instance, none on the CUDA-core one
-    want = {"conv1d_shuffle_w4": cfg.n_layers, "ssd": cfg.n_layers,
-            "ssd/tensor_core": cfg.n_layers}
-    if cfg.family == "hybrid":
-        want["flash_attention"] = want["flash_attention/tensor_core"] = \
-            cfg.n_layers // cfg.attn_every
+    # instance, none on the CUDA-core one, and no launch of another kernel
+    want = {}
+    if cfg.family in ("ssm", "hybrid"):
+        want = {"conv1d_shuffle_w4": cfg.n_layers, "ssd": cfg.n_layers,
+                "ssd/tensor_core": cfg.n_layers}
+    n_attn = {"dense": cfg.n_layers,
+              "hybrid": cfg.n_layers // cfg.attn_every}.get(cfg.family, 0)
+    if n_attn:
+        want["flash_attention"] = want["flash_attention/tensor_core"] = n_attn
     tag = "" if arch == MAMBA else f"[{arch}]"
     rec = report.setdefault("serving", {}).setdefault(arch, {})
     reduced_card_vs_cpu(rec, arch)
     launches, captured = serve_run(rec, arch, want)
-    layer0_conv1d(kernels["conv"], captured.pop("conv"), launches, rec, entries,
-                  "conv1d_shuffle" + tag)
-    layer0_ssd(kernels["ssd"], captured.pop("ssd"), launches, rec, entries, "ssd" + tag)
+    if "conv" in captured:
+        layer0_conv1d(kernels["conv"], captured.pop("conv"), launches, rec, entries,
+                      "conv1d_shuffle" + tag)
+    if "ssd" in captured:
+        layer0_ssd(kernels["ssd"], captured.pop("ssd"), launches, rec, entries, "ssd" + tag)
     if "flash" in captured:
-        layer0_flash(kernels["flash"], captured.pop("flash"), launches, rec, entries)
+        layer0_flash(kernels["flash"], captured.pop("flash"), launches, rec, entries, arch)
     torch.cuda.empty_cache()
-    continuity(rec, arch)
+    if arch in CONTINUITY_ARCHS:
+        continuity(rec, arch)
     torch.cuda.empty_cache()
 
 
@@ -1124,13 +1153,16 @@ def main() -> int:
         report["paper"][name] = rec
         del xs
 
-    # -- 5, 6. the serving paths: mamba2-1.3b, then zamba2-1.2b, full width ---
+    # -- 5-7. the serving paths at full width: mamba2-1.3b, zamba2-1.2b, then
+    #         the dense olmo-1b and yi-9b; starcoder2-3b reduced only ---------
     serving_kernels = {"conv": conv, "ssd": ssd_kernel, "flash": fa_kernel}
-    for arch in (MAMBA, HYBRID):
+    for arch in (MAMBA, HYBRID, *DENSE):
         torch.cuda.empty_cache()
         serving_path(arch, serving_kernels, report, entries)
+    for arch in REDUCED_ONLY:
+        reduced_card_vs_cpu(report["serving"].setdefault(arch, {}), arch)
 
-    # -- 7. records ------------------------------------------------------------
+    # -- 8. records ------------------------------------------------------------
     report["card"] = card
     report["seconds"] = time.perf_counter() - t_start
     os.makedirs(os.path.dirname(REPORT), exist_ok=True)

@@ -4,10 +4,10 @@
 with ``repro.core.frontend.stencil`` as this package's ``Program``, by
 walking its dataclass fields and class names, so nothing of ``repro`` is
 imported.  :func:`arrays_from_numpy` keeps the reference's layout, with
-``i`` as the last axis.  :func:`ssm_params_from_reference` and
-:func:`hybrid_params_from_reference` turn the reference's initialized
-``SSMModel`` and ``HybridModel`` parameters into this package's
-``state_dict``.
+``i`` as the last axis.  :func:`dense_params_from_reference`,
+:func:`ssm_params_from_reference` and :func:`hybrid_params_from_reference`
+turn the reference's initialized ``Model``, ``SSMModel`` and
+``HybridModel`` parameters into this package's ``state_dict``.
 """
 
 from __future__ import annotations
@@ -63,13 +63,24 @@ def _tensor(x) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
+def dense_params_from_reference(cfg, tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of ``repro_torch.models.Model(cfg)`` holding the
+    reference's unboxed ``Model.init`` parameters (numpy leaves; block
+    leaves stacked on a leading layer axis).  A ``nonparametric`` norm has
+    no leaves, so OLMo's ``ln1``, ``ln2`` and ``ln_f`` give no keys."""
+    sd = _head_params(tree)
+    for i in range(cfg.n_layers):
+        _stacked_block(sd, i, tree["blocks"], (i,))
+    return sd
+
+
 def ssm_params_from_reference(cfg, tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """The ``state_dict`` of ``repro_torch.models.SSMModel(cfg)`` holding
     the reference's unboxed ``SSMModel.init`` parameters (numpy leaves;
     block leaves stacked on a leading layer axis)."""
     sd = _head_params(tree)
     for i in range(cfg.n_layers):
-        _mamba_block(sd, i, tree["blocks"], (i,))
+        _stacked_block(sd, i, tree["blocks"], (i,))
     return sd
 
 
@@ -84,9 +95,9 @@ def hybrid_params_from_reference(cfg, tree: Mapping[str, Any]) -> Dict[str, torc
     sd = _head_params(tree)
     for s in range(n_super):
         for j in range(ne):
-            _mamba_block(sd, s * ne + j, tree["supers"], (s, j))
+            _stacked_block(sd, s * ne + j, tree["supers"], (s, j))
     for t in range(cfg.n_layers - n_super * ne):
-        _mamba_block(sd, n_super * ne + t, tree["trail"], (t,))
+        _stacked_block(sd, n_super * ne + t, tree["trail"], (t,))
     for part, leaves in tree["shared_attn"].items():
         for name, leaf in leaves.items():
             sd[f"shared_attn.{part}.{name}"] = _tensor(leaf)
@@ -100,9 +111,9 @@ def _head_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def _mamba_block(sd: Dict[str, torch.Tensor], i: int,
-                 stacked: Mapping[str, Any], index: tuple) -> None:
+def _stacked_block(sd: Dict[str, torch.Tensor], i: int,
+                   stacked: Mapping[str, Any], index: tuple) -> None:
     """Block ``i`` of the port from the stacked leaves at ``index``."""
-    for part in ("ln", "mamba"):
-        for name, leaf in stacked[part].items():
+    for part, leaves in stacked.items():
+        for name, leaf in leaves.items():
             sd[f"blocks.{i}.{part}.{name}"] = _tensor(np.asarray(leaf)[index])

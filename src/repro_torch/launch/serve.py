@@ -1,17 +1,24 @@
 """Serving driver: batched prefill + greedy decode (mirrors
 ``src/repro/launch/serve.py``).
 
-Serves ``mamba2-1.3b`` (attention-free) and ``zamba2-1.2b`` (hybrid:
-Mamba-2 blocks and one shared attention block).  Requests come from the
-synthetic ``TokenPipeline``; the weights are random, drawn on the device
-from ``--seed``.  On the card the prefill of every Mamba-2 layer runs the
-CUDA conv1d and SSD kernels, and every application of the shared
-attention block the CUDA flash-attention kernel.
+Serves every registered arch whose family the port builds: the dense
+transformers (``olmo-1b``, ``yi-9b``, ``starcoder2-3b``,
+``deepseek-67b``), ``mamba2-1.3b`` (attention-free) and ``zamba2-1.2b``
+(hybrid: Mamba-2 blocks and one shared attention block).  Requests come
+from the synthetic ``TokenPipeline``; the weights are random, drawn on
+the device from ``--seed``.  On the card the prefill of every Mamba-2
+layer runs the CUDA conv1d and SSD kernels, and every attention layer
+(and every application of the shared attention block) the CUDA
+flash-attention kernel.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
       --reduced --device cpu --batch 4 --prompt-len 32 --gen 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
       --reduced --device cpu --batch 4 --prompt-len 32 --gen 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \
+      --reduced --device cpu --batch 4 --prompt-len 32 --gen 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \
+      --batch 4 --prompt-len 1024 --gen 32          # full width, on the card
 """
 
 from __future__ import annotations

@@ -1,15 +1,16 @@
-"""Grouped-query attention: prefill and decode (mirrors
+"""Grouped-query attention: full-sequence, prefill and decode (mirrors
 ``src/repro/models/attention.py``; cross and ring attention are not
 ported yet).
 
 Where the reference calls its jnp ``blockwise_attention`` (the point at
-which a real TPU would run the Pallas flash kernel), ``prefill_attention``
-calls the port's :func:`~repro_torch.kernels.flash_attention.flash_attention`:
-on a CUDA tensor the hand-written CUDA kernel, on a CPU tensor its plain
-version.  ``blockwise_attention`` is the reference's flash-style
-algorithm in plain PyTorch, kept for parity with the JAX package; decode
-is plain PyTorch, as it is plain jnp in the reference.  The projections
-are ``torch.matmul``.
+which a real TPU would run the Pallas flash kernel), ``self_attention``
+and ``prefill_attention`` call the port's
+:func:`~repro_torch.kernels.flash_attention.flash_attention`: on a CUDA
+tensor the hand-written CUDA kernel, on a CPU tensor its plain version.
+``blockwise_attention`` is the reference's flash-style algorithm in
+plain PyTorch, kept for parity with the JAX package; decode is plain
+PyTorch, as it is plain jnp in the reference.  The projections are
+``torch.matmul``.
 """
 
 from __future__ import annotations
@@ -125,9 +126,23 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out[:, :Sq].to(q.dtype)
 
 
-def prefill_attention(params: Params, x: torch.Tensor, cfg: AttnConfig):
-    """Full-sequence causal self-attention that also returns the (k, v)
-    cache.  x: (B, S, D)."""
+def self_attention(params: Params, x: torch.Tensor, cfg: AttnConfig,
+                   impl: str = "blockwise") -> torch.Tensor:
+    """Full-sequence self-attention with no cache (the training and
+    full-forward compute).  x: (B, S, D).
+
+    ``impl`` is the reference's and does not change the function: without
+    a mesh the reference runs ``blockwise_attention`` for "blockwise" and
+    ``naive_attention`` for anything else, "ring" included, and both
+    compute what the flash kernel computes.  Sequence-parallel ring
+    attention across cards waits for the distributed part of the port."""
+    return prefill_attention(params, x, cfg, impl=impl)[0]
+
+
+def prefill_attention(params: Params, x: torch.Tensor, cfg: AttnConfig,
+                      impl: str = "blockwise"):
+    """:func:`self_attention` that also returns the (k, v) cache.
+    x: (B, S, D)."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     q, k, v = qkv(params, x, positions, cfg)

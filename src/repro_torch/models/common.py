@@ -84,8 +84,8 @@ def layernorm(x: torch.Tensor, scale: Optional[torch.Tensor],
     return out
 
 
-def init_norm(d: int, kind: str, dtype: torch.dtype = torch.float32,
-              device: str = "cpu") -> Params:
+def init_norm(d: int, kind: str, dtype: torch.dtype,
+              device: torch.device) -> Params:
     """kind: rmsnorm | layernorm | nonparametric (OLMo-1b)."""
     if kind == "rmsnorm":
         return {"scale": torch.ones(d, dtype=dtype, device=device)}

@@ -1,18 +1,22 @@
-"""Language-model assembly (mirrors ``src/repro/models/lm.py``; the SSM
-and hybrid families so far).
+"""Language-model assembly (mirrors ``src/repro/models/lm.py``; the dense,
+SSM and hybrid families so far).
 
-:class:`SSMModel` and :class:`HybridModel` keep the reference's serving
-API, with the parameters inside the module instead of a pytree argument:
+:class:`Model` (dense), :class:`SSMModel` and :class:`HybridModel` keep
+the reference's API, with the parameters inside the module instead of a
+pytree argument:
 
+  hidden(batch)                    -> (final-norm hidden states, aux)
+  loss(batch)                      -> (scalar, {"ce", "aux"})
   init_cache(batch_size, seq_len)  -> cache dict
   prefill(batch, max_len)          -> (last logits, cache)
   decode_step(tokens, cache)       -> (logits, cache)
 
 The reference scans over stacked layers; here a Python loop runs a flat
-``ModuleList`` of blocks.  ``build_model(cfg, device, generator)`` is the
-factory; families whose path is not ported yet raise
-``NotImplementedError``.  Entry points run on the card unless
-``device="cpu"`` is asked for.
+``ModuleList`` of blocks.  Cross-entropy runs over sequence chunks
+(:func:`chunked_ce_loss`), so the (B, S, vocab) logits are never held.
+``build_model(cfg, device, generator)`` is the factory; families whose
+path is not ported yet (moe, vlm, audio) raise ``NotImplementedError``.
+Entry points run on the card unless ``device="cpu"`` is asked for.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from . import mlp as mlpm
 from .common import Params, apply_norm, embed_init, init_norm
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+CE_CHUNK = 512
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -65,7 +70,7 @@ def _pad_kv(kv: torch.Tensor, max_len: Optional[int]) -> torch.Tensor:
 
 
 def _attn_cfg(cfg: ModelConfig) -> attn.AttnConfig:
-    """Causal self-attention of the shared block."""
+    """Causal self-attention of a transformer block."""
     return attn.AttnConfig(
         d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.head_dim, rope_theta=cfg.rope_theta, causal=True,
@@ -75,6 +80,44 @@ def _attn_cfg(cfg: ModelConfig) -> attn.AttnConfig:
 def _frozen(params: Dict[str, torch.Tensor]) -> nn.ParameterDict:
     return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
                              for k, v in params.items()})
+
+
+# ---------------------------------------------------------------------------
+# chunked cross-entropy
+# ---------------------------------------------------------------------------
+
+def chunked_ce_loss(table: torch.Tensor, hidden: torch.Tensor,
+                    labels: torch.Tensor, chunk: int = CE_CHUNK,
+                    valid_vocab: Optional[int] = None) -> torch.Tensor:
+    """hidden: (B, S, D); labels: (B, S) (-1 = masked).  Mean NLL over the
+    unmasked labels, float32, computed ``chunk`` positions at a time.
+
+    ``valid_vocab``: when the embedding table is padded to a lane multiple
+    (``cfg.pad_vocab_multiple``), rows >= valid_vocab get a -1e30 logit so
+    the padding never enters the softmax."""
+    B, S, D = hidden.shape
+    c = min(chunk, S)
+    if S % c:
+        raise ValueError(f"sequence length {S} is not a multiple of the "
+                         f"cross-entropy chunk {c}")
+    tf = table.float()
+    V = table.shape[0]
+    pad = None
+    if valid_vocab is not None and valid_vocab < V:
+        pad = torch.arange(V, device=table.device) >= valid_vocab
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for s0 in range(0, S, c):
+        logits = torch.matmul(hidden[:, s0:s0 + c].float(), tf.t())   # (B, c, V)
+        if pad is not None:
+            logits = logits.masked_fill(pad, -1e30)
+        lab = labels[:, s0:s0 + c]
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lab.clamp(min=0).long()[..., None])[..., 0]
+        mask = (lab >= 0).float()
+        tot = tot + torch.sum((logz - gold) * mask)
+        cnt = cnt + torch.sum(mask)
+    return tot / torch.clamp(cnt, min=1.0)
 
 
 class SSMBlock(nn.Module):
@@ -112,10 +155,20 @@ class TBlock(nn.Module):
             setattr(self, name, _frozen(params))
 
 
+def apply_tblock(p: TBlock, x: torch.Tensor, cfg: ModelConfig):
+    """x: (B, S, D) -> (x', aux), the full-sequence block; aux, the MoE
+    load-balancing loss, is 0 for the dense ffn."""
+    h = apply_norm(p.ln1, x, cfg.norm, impl=cfg.norm_impl)
+    x = x + attn.self_attention(p.attn, h, _attn_cfg(cfg), impl=cfg.attn_impl)
+    h = apply_norm(p.ln2, x, cfg.norm, impl=cfg.norm_impl)
+    return (x + mlpm.apply_mlp(p.mlp, h, cfg.mlp),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
 def prefill_tblock(p: TBlock, x: torch.Tensor, cfg: ModelConfig):
     """x: (B, S, D) -> (x', (k, v))."""
     h = apply_norm(p.ln1, x, cfg.norm, impl=cfg.norm_impl)
-    a, kv = attn.prefill_attention(p.attn, h, _attn_cfg(cfg))
+    a, kv = attn.prefill_attention(p.attn, h, _attn_cfg(cfg), impl=cfg.attn_impl)
     x = x + a
     h = apply_norm(p.ln2, x, cfg.norm, impl=cfg.norm_impl)
     return x + mlpm.apply_mlp(p.mlp, h, cfg.mlp), kv
@@ -132,13 +185,16 @@ def decode_tblock(p: TBlock, x: torch.Tensor, kv_cache, pos: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# SSM (mamba2) model
+# dense model
 # ---------------------------------------------------------------------------
 
-class SSMModel(nn.Module):
-    """Embedding, a stack of Mamba-2 blocks and a final norm; the
-    unembedding is tied to the (row-padded) embedding table.  The
-    weights are drawn from ``generator`` (seed 0 on ``device`` if None)."""
+class Model(nn.Module):
+    """Embedding, a stack of transformer blocks and a final norm; the
+    unembedding is the (row-padded) embedding table, in float32, whatever
+    ``tie_embeddings`` says, as in the reference.  The weights are drawn
+    from ``generator`` (seed 0 on ``device`` if None).  On the card every
+    attention prefill runs the CUDA flash-attention kernel once per
+    layer."""
 
     def __init__(self, cfg: ModelConfig, device: str = "cuda",
                  generator: Optional[torch.Generator] = None):
@@ -147,13 +203,97 @@ class SSMModel(nn.Module):
         generator = _generator(dev, generator)
         self.cfg = cfg
         self.dtype = _dtype(cfg)
-        scfg = self.ssm_cfg()
         self.embed = _frozen({"table": embed_init(
             generator, (cfg.padded_vocab, cfg.d_model), self.dtype)})
-        self.blocks = nn.ModuleList(
-            [SSMBlock(cfg, scfg, generator, self.dtype)
-             for _ in range(cfg.n_layers)])
+        self.blocks = nn.ModuleList([self._block(generator)
+                                     for _ in range(cfg.n_layers)])
         self.ln_f = _frozen(init_norm(cfg.d_model, cfg.norm, self.dtype, dev))
+
+    def _block(self, gen: torch.Generator) -> nn.Module:
+        return TBlock(self.cfg, gen, self.dtype)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed["table"].device
+
+    def _logits(self, h: torch.Tensor) -> torch.Tensor:
+        """(..., D) -> (..., vocab) float32 logits against the tied table."""
+        logits = torch.matmul(h.float(), self.embed["table"].float().t())
+        return logits[..., :self.cfg.vocab]
+
+    def _final(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, D) hidden after the last block -> (B, vocab) logits."""
+        cfg = self.cfg
+        return self._logits(apply_norm(self.ln_f, x, cfg.norm, impl=cfg.norm_impl))
+
+    # -- full-sequence forward ----------------------------------------------
+    def _backbone(self, x: torch.Tensor):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for blk in self.blocks:
+            x, a = apply_tblock(blk, x, self.cfg)
+            aux = aux + a
+        return x, aux
+
+    def hidden(self, batch: Dict[str, torch.Tensor]):
+        """batch["tokens"]: (B, S) -> (final-norm hidden (B, S, D), aux)."""
+        cfg = self.cfg
+        x, aux = self._backbone(self.embed["table"][batch["tokens"].to(self.device)])
+        return apply_norm(self.ln_f, x, cfg.norm, impl=cfg.norm_impl), aux
+
+    def loss(self, batch: Dict[str, torch.Tensor]):
+        """Mean cross-entropy of ``batch["labels"]`` (-1 = masked) plus
+        0.01 x aux; returns (loss, {"ce", "aux"})."""
+        h, aux = self.hidden(batch)
+        ce = chunked_ce_loss(self.embed["table"], h, batch["labels"].to(self.device),
+                             valid_vocab=self.cfg.vocab)
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+
+    # -- serving --------------------------------------------------------------
+    def init_cache(self, batch_size: int, seq_len: int) -> Dict[str, Any]:
+        cfg = self.cfg
+        shape = (cfg.n_layers, batch_size, seq_len, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=self.dtype, device=self.device),
+                "v": torch.zeros(shape, dtype=self.dtype, device=self.device),
+                "pos": torch.zeros(batch_size, dtype=torch.int32, device=self.device)}
+
+    @torch.inference_mode()
+    def prefill(self, batch: Dict[str, torch.Tensor],
+                max_len: Optional[int] = None):
+        """batch["tokens"]: (B, S) -> (last logits (B, vocab), cache); the
+        k/v caches (L, B, S, KV, Dh) are zero-padded along S to ``max_len``."""
+        tokens = batch["tokens"].to(self.device)
+        x = self.embed["table"][tokens]
+        ks, vs = [], []
+        for blk in self.blocks:
+            x, (k, v) = prefill_tblock(blk, x, self.cfg)
+            ks.append(k)
+            vs.append(v)
+        B, S = tokens.shape
+        return self._final(x[:, -1]), {
+            "k": _pad_kv(torch.stack(ks), max_len), "v": _pad_kv(torch.stack(vs), max_len),
+            "pos": torch.full((B,), S, dtype=torch.int32, device=self.device)}
+
+    @torch.inference_mode()
+    def decode_step(self, tokens: torch.Tensor, cache):
+        """tokens: (B,) -> (logits (B, vocab), new cache).  The k/v caches
+        are written at ``pos`` in place and returned as they are."""
+        x = self.embed["table"][tokens.to(self.device)][:, None]     # (B, 1, D)
+        pos = cache["pos"]
+        for i, blk in enumerate(self.blocks):
+            x, _ = decode_tblock(blk, x, (cache["k"][i], cache["v"][i]), pos, self.cfg)
+        return self._final(x[:, 0]), {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+
+
+# ---------------------------------------------------------------------------
+# SSM (mamba2) model
+# ---------------------------------------------------------------------------
+
+class SSMModel(Model):
+    """Embedding, a stack of Mamba-2 blocks and a final norm; the
+    unembedding is tied to the (row-padded) embedding table."""
+
+    def _block(self, gen: torch.Generator) -> nn.Module:
+        return SSMBlock(self.cfg, self.ssm_cfg(), gen, self.dtype)
 
     def ssm_cfg(self) -> m2.SSMConfig:
         cfg = self.cfg
@@ -161,15 +301,15 @@ class SSMModel(nn.Module):
                             head_dim=cfg.ssm_head_dim, expand=cfg.ssm_expand,
                             conv_width=cfg.conv_width, chunk=cfg.ssm_chunk)
 
-    @property
-    def device(self) -> torch.device:
-        return self.embed["table"].device
+    def _mamba(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """Block i over the full sequence, without its states."""
+        cfg, blk = self.cfg, self.blocks[i]
+        return x + blk.mamba(apply_norm(blk.ln, x, cfg.norm, impl=cfg.norm_impl))
 
-    def _logits(self, h: torch.Tensor) -> torch.Tensor:
-        """(B, D) -> (B, vocab) float32 logits against the tied table."""
-        table = self.embed["table"]
-        logits = torch.matmul(h.float(), table.float().t())
-        return logits[:, :self.cfg.vocab]
+    def _backbone(self, x: torch.Tensor):
+        for i in range(self.cfg.n_layers):
+            x = self._mamba(i, x)
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
     def init_cache(self, batch_size: int, seq_len: int) -> Dict[str, Any]:
         scfg = self.ssm_cfg()
@@ -198,11 +338,6 @@ class SSMModel(nn.Module):
         convs.append(cs)
         ssms.append(ss)
         return x + y
-
-    def _final(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, D) hidden after the last block -> (B, vocab) logits."""
-        cfg = self.cfg
-        return self._logits(apply_norm(self.ln_f, x, cfg.norm, impl=cfg.norm_impl))
 
     @torch.inference_mode()
     def prefill(self, batch: Dict[str, torch.Tensor],
@@ -258,6 +393,16 @@ class HybridModel(SSMModel):
         cache["attn_v"] = torch.zeros(shape, dtype=self.dtype, device=self.device)
         return cache
 
+    def _backbone(self, x: torch.Tensor):
+        ne = self.cfg.attn_every
+        for s in range(self.n_super):
+            x = apply_tblock(self.shared_attn, x, self.cfg)[0]
+            for j in range(ne):
+                x = self._mamba(s * ne + j, x)
+        for t in range(self.n_trail):
+            x = self._mamba(self.n_super * ne + t, x)
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
     @torch.inference_mode()
     def prefill(self, batch: Dict[str, torch.Tensor],
                 max_len: Optional[int] = None):
@@ -303,7 +448,7 @@ class HybridModel(SSMModel):
                                 "pos": pos + 1}
 
 
-_FAMILIES = {"ssm": SSMModel, "hybrid": HybridModel}
+_FAMILIES = {"dense": Model, "ssm": SSMModel, "hybrid": HybridModel}
 
 
 def build_model(cfg: ModelConfig, device: str = "cuda",

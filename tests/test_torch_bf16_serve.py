@@ -1,5 +1,5 @@
-"""The reduced Mamba-2 and Zamba2 prefill in bfloat16 against the JAX
-package on the CPU, on the same weights: the reference's bf16
+"""The reduced Mamba-2, Zamba2 and OLMo-1B prefill in bfloat16 against
+the JAX package on the CPU, on the same weights: the reference's bf16
 initialization carried over through numpy, so both sides hold the same
 bf16 values.
 
@@ -11,12 +11,15 @@ bf16's precision: a bf16 value carries 8 significant bits, so one
 rounding moves it by up to half an ulp, 2^-9 of its scale; the hidden
 state passes some ten bf16 roundings whose errors need not cancel (per
 block its norm, projections, the conv, the gated output and the
-residual add; 2 blocks in Mamba-2, 5 in Zamba2), and the logits inherit
+residual add; 2 blocks in Mamba-2, 5 in Zamba2; in OLMo per block two
+norms, the q, k, v and output projections, the attention, three MLP
+products and two residual adds, 2 blocks), and the logits inherit
 that relative error.  So every logit is held to 8 bf16 ulps of the
 logits' scale (8 x 2^-8 of max |logit| rounded down to a power of two,
 about 3 % of it).  A wrong term (a dropped weight, a shifted position)
 moves logits by O(the scale) and is caught; the float32 tests in
-``test_torch_{mamba2,zamba2}_serve.py`` hold the same models to 1e-5.
+``test_torch_{mamba2,zamba2,dense}_serve.py`` hold the same models to
+1e-5.
 
 The greedy token at a position is the argmax of its logits.  Random
 reduced models have many near-ties (top-two margins down to 0.004 ulps),
@@ -28,11 +31,12 @@ exceeds twice the bound ("decided") it must be the reference's, and at
 least a fifth of the positions must be decided.  Over weight seeds 0-7
 (tokens from seed 48 + the weight seed; 2 x 48 positions each; this
 file run as a script prints them) the error read 2.20-2.95 ulps
-(Mamba-2) and 2.49-2.98 (Zamba2); decided
-positions 26, 28, 37, 29, 32, 42, 31, 30 of 96 (Mamba-2) and 23, 23, 30,
-28, 26, 29, 36, 25 (Zamba2); swapped tokens 1, 2, 1, 1, 0, 1, 3, 1 and
-3, 5, 3, 3, 1, 3, 2, 4, none at a decided position, each within 1.94
-ulps of the reference's top.  The test runs seed 0."""
+(Mamba-2), 2.49-2.98 (Zamba2) and 1.16-1.52 (OLMo); decided positions
+26, 28, 37, 29, 32, 42, 31, 30 of 96 (Mamba-2), 23, 23, 30, 28, 26, 29,
+36, 25 (Zamba2) and 45, 13, 28, 35, 37, 34, 37, 28 (OLMo: seed 1 falls
+below a fifth); swapped tokens 1, 2, 1, 1, 0, 1, 3, 1, then 3, 5, 3, 3,
+1, 3, 2, 4, then 0, 2, 0, 0, 1, 1, 0, 1, none at a decided position,
+each within 1.94 ulps of the reference's top.  The test runs seed 0."""
 
 import jax
 import jax.numpy as jnp
@@ -46,12 +50,17 @@ from repro.configs import reduced as jax_reduced
 from repro.models import build_model as jax_build_model
 from repro.models import unbox
 from repro_torch.configs import get_config, reduced
-from repro_torch.interop import hybrid_params_from_reference, ssm_params_from_reference
+from repro_torch.interop import (
+    dense_params_from_reference,
+    hybrid_params_from_reference,
+    ssm_params_from_reference,
+)
 from repro_torch.models import build_model
 
 ULPS = 8                # bf16 ulps of the logits' scale (module docstring)
 CASES = {"mamba2-1.3b": (2, ssm_params_from_reference),
-         "zamba2-1.2b": (5, hybrid_params_from_reference)}
+         "zamba2-1.2b": (5, hybrid_params_from_reference),
+         "olmo-1b": (2, dense_params_from_reference)}
 
 
 def _pair(arch, seed=0):
@@ -66,25 +75,11 @@ def _pair(arch, seed=0):
 
 
 def _port_logits(model, tokens):
-    """The port's prefill logits at every position: the hidden state after
-    the last block (both models end with a Mamba-2 block), captured on the
-    prefill, through the final norm and the tied unembedding; and the
-    prefill's own last logits."""
-    seen = []
-    real = model._mamba_prefill
-
-    def spy(i, x, convs, ssms):
-        seen.append(real(i, x, convs, ssms))
-        return seen[-1]
-
-    model._mamba_prefill = spy
-    try:
-        last, _ = model.prefill({"tokens": tokens})
-    finally:
-        del model._mamba_prefill
-    h = seen[-1]
-    B, S, D = h.shape
-    return model._final(h.reshape(B * S, D)).reshape(B, S, -1), last
+    """The port's logits at every position, from ``hidden`` through the
+    tied unembedding, and the prefill's own last logits."""
+    h, _ = model.hidden({"tokens": tokens})
+    last, _ = model.prefill({"tokens": tokens})
+    return model._logits(h), last
 
 
 def _logits(arch, seed=0):

@@ -1,7 +1,7 @@
 """The CUDA kernels on the card (stencil, conv1d, SSD, flash attention; the
 SSD and flash attention in both their instances, bf16 tensor cores and
-CUDA cores) and the Mamba-2 and Zamba2 serving paths, against their plain
-PyTorch versions.  Imports only torch
+CUDA cores) and the Mamba-2, Zamba2 and dense-transformer serving paths,
+against their plain PyTorch versions.  Imports only torch
 and the port, so it runs where JAX is not installed:  PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 Every test here skips without a CUDA device."""
 
@@ -366,13 +366,14 @@ def test_mamba2_prefill_on_card_matches_plain(card):
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 6e-2}    # the reference's
 # (B, Sq, Sk, H, KV, Dh, causal): the reference test's five shapes, Sq
 # above a ragged Sk, GQA with Dh 128, ragged Sq and Sk at Dh 64 and (GQA)
-# 128, and the serving shape
+# 128, and the serving shapes of Zamba2, OLMo-1B and Yi-9B
 FLASH_SHAPES = [(2, 64, 64, 4, 2, 16, True), (1, 100, 100, 4, 4, 8, True),
                 (2, 64, 64, 8, 2, 16, False), (1, 33, 33, 2, 1, 32, True),
                 (2, 48, 96, 4, 1, 16, True), (1, 40, 20, 2, 1, 8, True),
                 (2, 200, 200, 8, 2, 128, True), (1, 300, 177, 4, 2, 64, True),
                 (2, 130, 250, 8, 2, 128, True), (1, 70, 128, 4, 1, 64, False),
-                (4, 1024, 1024, 32, 32, 64, True)]
+                (4, 1024, 1024, 32, 32, 64, True), (4, 1024, 1024, 16, 16, 128, True),
+                (4, 1024, 1024, 32, 4, 128, True)]
 
 
 def _flash_rounded(out, q, k, v, causal=True):
@@ -498,3 +499,33 @@ def test_zamba2_prefill_on_card_matches_plain(card):
     want2, _ = cpu.decode_step(nxt, want_cache)
     torch.testing.assert_close(got2.cpu(), want2, rtol=1e-4, atol=1e-4)
     assert tfa.launch_counts()["flash_attention"] == 2      # decode launches none
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "yi-9b", "starcoder2-3b"])
+def test_dense_prefill_on_card_matches_plain(card, arch):
+    """The reduced dense model (float32, Dh 16: the CUDA-core flash
+    instance, one launch per layer): prefill, one decode step and the loss
+    on the card against the same weights on the CPU."""
+    cfg = reduced(get_config(arch))
+    cpu = build_model(cfg, device="cpu")
+    gpu = build_model(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 48)))
+    tfa.reset_launch_counts()
+    got, cache = gpu.prefill({"tokens": tokens.cuda()}, max_len=50)
+    torch.cuda.synchronize()
+    assert tfa.launch_counts()["flash_attention"] == cfg.n_layers
+    assert tfa.instance_counts()["flash_attention/cuda_core"] == cfg.n_layers
+    want, want_cache = cpu.prefill({"tokens": tokens}, max_len=50)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    for key in ("k", "v"):
+        torch.testing.assert_close(cache[key].cpu(), want_cache[key],
+                                   rtol=1e-4, atol=1e-4)
+    nxt = want.argmax(-1)
+    got2, _ = gpu.decode_step(nxt.cuda(), cache)
+    want2, _ = cpu.decode_step(nxt, want_cache)
+    torch.testing.assert_close(got2.cpu(), want2, rtol=1e-4, atol=1e-4)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+    torch.testing.assert_close(gpu.loss(batch)[0].cpu(), cpu.loss(batch)[0],
+                               rtol=1e-4, atol=1e-4)

@@ -152,7 +152,9 @@ def test_port_imports_neither_jax_nor_reference():
     for pkg in ("configs", "models", "data", "serve", "launch",
                 "kernels.conv1d", "kernels.ssd", "kernels.flash_attention"):
         assert f"repro_torch.{pkg}" in names, pkg
-    for mod in ("configs.mamba2_1_3b", "configs.zamba2_1_2b", "models.mamba2",
+    for mod in ("configs.mamba2_1_3b", "configs.zamba2_1_2b", "configs.olmo_1b",
+                "configs.yi_9b", "configs.starcoder2_3b", "configs.deepseek_67b",
+                "interop", "models.mamba2",
                 "models.attention", "models.mlp", "models.lm",
                 "data.pipeline", "serve.step", "launch.serve",
                 "kernels.conv1d.ops", "kernels.ssd.ops",
