@@ -69,7 +69,26 @@ Phases, each fatal on failure:
    the reduced model on the card against the CPU (logits, greedy tokens
    and the loss), also for starcoder2-3b, which runs reduced only; f32
    continuity at full width for olmo-1b;
-8. a ``kernels`` JSON line, and as the last line the device record.
+8. the training path: one train step of the reduced olmo-1b, mamba2-1.3b
+   and zamba2-1.2b in float32 on the card (every kernel through its
+   autograd Function, blocks recomputed) against the CPU (gradients, loss,
+   gradient norm, parameters after AdamW); the reduced olmo-1b's loss
+   falling over 40 steps on the card; a checkpoint round trip on the card
+   (float32 and bf16), bitwise; then olmo-1b and mamba2-1.3b at published
+   widths (bf16, random weights from a seed) trained through
+   ``repro_torch.launch.train`` for 6 steps of 4 x 1024 tokens, one after
+   the other, with launch counts read around the run (per step forward +
+   recompute: 32 flash-attention launches for OLMo, 96 conv1d ``shuffle``
+   and 96 SSD for Mamba-2, every flash and SSD call on ``tensor_core``),
+   every loss finite and every parameter's gradient at step 1 finite and
+   not zero everywhere; the layer-0 inputs of each kernel at step 1 held
+   and timed as in phases 5-7, and the kernel's autograd Function held
+   against the plain version's autograd on them, its backward timed; one
+   more warm step traced and split into the kernels, their plain-autograd
+   backward, cuBLAS, the optimizer, other kernels and idle time (the
+   plain backward and the optimizer by the device spans of profiler
+   ranges the smoke opens around them);
+9. a ``kernels`` JSON line, and as the last line the device record.
 
 Run from the repository root:  python3 chip_smoke.py
 Needs one CUDA device and nvcc for sm_90a; exits non-zero without them.
@@ -135,6 +154,16 @@ FLASH_SHAPES = [(2, 64, 64, 4, 2, 16, True), (1, 100, 100, 4, 4, 8, True),
 # magnitude ~1, while a wrong carried state, conv window or k/v row moves
 # them by O(0.1).
 CONTINUITY_TOL = 1e-3
+# training at full width: the serving cells' traffic (4 x 1024 tokens from
+# TokenPipeline(seed=0)), 6 steps, no checkpoint (a save would write 12-16 GB)
+TRAIN = dict(batch=4, seq=1024, steps=6, lr=3e-3)
+TRAIN_ARCHS = ("olmo-1b", MAMBA)
+# one train step card vs CPU, reduced float32 (the hybrid with 5 layers):
+# loss, gradient norm and every gradient (of its leaf's largest) within
+# 1e-4, the reduced models' card-vs-CPU tolerance; each parameter after
+# the step within train.optim.first_step_bound of that gradient tolerance
+REDUCED_TRAIN = ("olmo-1b", MAMBA, HYBRID)
+TRAIN_TOL = 1e-4
 
 
 def sh(*cmd: str) -> str:
@@ -552,7 +581,8 @@ def serve_run(report, arch: str, want: dict):
     real = (m2.causal_conv1d, m2.ssd, attn.flash_attention)
 
     def capture_conv(x, w, b, mode="shuffle", activation=True):
-        captured.setdefault("conv", (x, w, b))
+        # w and b are trainable parameters: held off the autograd graph
+        captured.setdefault("conv", (x, w.detach(), b.detach()))
         return real[0](x, w, b, mode=mode, activation=activation)
 
     def capture_ssd(xh, dt, A, Bm, Cm, chunk):
@@ -611,7 +641,7 @@ def serve_run(report, arch: str, want: dict):
     return launches, captured
 
 
-def layer0_conv1d(conv, args, launches, report, entries, name) -> None:
+def layer0_conv1d(conv, args, launches, report, entries, name, phase="serve") -> None:
     """Both conv1d modes on layer 0's input, the in-projection's column
     view the model passes: parity with the plain version, times beside the
     bound, the plain version, F.conv1d + SiLU and a copy of the same bytes.
@@ -644,7 +674,7 @@ def layer0_conv1d(conv, args, launches, report, entries, name) -> None:
 
     torch.testing.assert_close(library().transpose(1, 2).float(), want.float(),
                                rtol=tol, atol=tol)
-    print(f"[serve-kernel] conv1d layer 0's input {tuple(x.shape)} {x.dtype} is the "
+    print(f"[{phase}-kernel] conv1d layer 0's input {tuple(x.shape)} {x.dtype} is the "
           f"in-projection's column view, strides {x.stride()}")
     item = x.element_size()
     nbytes = 2 * x.numel() * item + (W + 1) * C * item
@@ -664,10 +694,10 @@ def layer0_conv1d(conv, args, launches, report, entries, name) -> None:
     for m in tconv.MODES:
         ms = times[m]
         rec["ms"][m] = ms
-        print(f"[serve-kernel] conv1d {m:<7} {(B, L, C, W)} {x.dtype} {ms:.4f} ms, "
+        print(f"[{phase}-kernel] conv1d {m:<7} {(B, L, C, W)} {x.dtype} {ms:.4f} ms, "
               f"bound {bound[bound_by]:.4f} ms ({bound_by}), "
               f"{nbytes / ms / 1e6:.0f} GB/s")
-    print(f"[serve-kernel] conv1d plain {plain_ms:.4f} ms, F.conv1d+silu "
+    print(f"[{phase}-kernel] conv1d plain {plain_ms:.4f} ms, F.conv1d+silu "
           f"{library_ms:.4f} ms, a copy of x into a contiguous tensor (the same "
           f"bytes) {copy_ms:.4f} ms, max|err| {err:.2e}")
     entries.append({"name": name, "route": "cuda", "source": CONV_SOURCE,
@@ -678,7 +708,7 @@ def layer0_conv1d(conv, args, launches, report, entries, name) -> None:
     report["conv1d_layer0"] = rec
 
 
-def layer0_ssd(ssd_kernel, args, launches, report, entries, name) -> None:
+def layer0_ssd(ssd_kernel, args, launches, report, entries, name, phase="serve") -> None:
     """The SSD kernel on layer 0's inputs: parity with the plain version
     (y and final state), time beside the bound and the plain version."""
     import torch
@@ -744,18 +774,18 @@ def layer0_ssd(ssd_kernel, args, launches, report, entries, name) -> None:
                     "max_abs_err": max(ey, es), "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound[bound_by], "bound_by": bound_by,
                     "library_ms": None})
-    print(f"[serve-kernel] ssd {(Bsz, L, H, P, N, Q)} {xh.dtype} ({instance}, "
+    print(f"[{phase}-kernel] ssd {(Bsz, L, H, P, N, Q)} {xh.dtype} ({instance}, "
           f"{len(passes)} CUDA kernels per call) {ms:.4f} ms, bound "
           f"{bound[bound_by]:.4f} ms ({bound_by}; needs {flops / 1e9:.2f} GFLOP, "
           f"{nbytes / 1e6:.1f} MB); executes {kernel_flops / 1e9:.2f} GFLOP "
           f"(Pallas {pallas_flops / 1e9:.2f}) at {kernel_flops / ms / 1e9:.1f} TFLOP/s; "
           f"plain {plain_ms:.3f} ms; max|err| y {ey:.2e} state {es:.2e}"
           f"{rounded_note(rounded)}")
-    print("[serve-kernel] ssd warm, per CUDA kernel: "
+    print(f"[{phase}-kernel] ssd warm, per CUDA kernel: "
           + ", ".join(f"{k.split('::')[-1]} {v:.1f} us" for k, v in passes.items()))
 
 
-def layer0_flash(fa_kernel, args, launches, report, entries, arch) -> None:
+def layer0_flash(fa_kernel, args, launches, report, entries, arch, phase="serve") -> None:
     """The flash-attention kernel on the inputs of ``arch``'s first
     attention call: parity with the plain version, time beside the bound,
     the plain version and ``scaled_dot_product_attention`` on the same
@@ -820,7 +850,7 @@ def layer0_flash(fa_kernel, args, launches, report, entries, arch) -> None:
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound[bound_by], "bound_by": bound_by,
                     "library_ms": library_ms})
-    print(f"[serve-kernel] flash_attention [{arch}] {(B, Sq, Sk, H, KV, Dh)} causal {causal} "
+    print(f"[{phase}-kernel] flash_attention [{arch}] {(B, Sq, Sk, H, KV, Dh)} causal {causal} "
           f"{q.dtype} ({instance}) {ms:.4f} ms, bound {bound[bound_by]:.4f} ms ({bound_by}; "
           f"{nbytes / 1e6:.1f} MB, needs {flops / 1e9:.2f} GFLOP, executes "
           f"{kernel_flops / 1e9:.2f}) at {kernel_flops / ms / 1e9:.1f} TFLOP/s; "
@@ -895,6 +925,456 @@ def serving_path(arch, kernels, report, entries) -> None:
     if arch in CONTINUITY_ARCHS:
         continuity(rec, arch)
     torch.cuda.empty_cache()
+
+
+def reduced_train_card_vs_cpu(report, arch: str) -> None:
+    """One train step of the reduced model in float32 on the card (every
+    kernel, through its autograd Function, blocks recomputed) against the
+    plain path on the CPU (no recomputation) from the same weights."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import conv1d as tconv
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import ssd as tssd
+    from repro_torch.models import build_model
+    from repro_torch.train import OptConfig, init_opt_state, make_train_step
+    from repro_torch.train.optim import first_step_bound
+
+    rcfg = reduced(get_config(arch))
+    if rcfg.family == "hybrid":
+        rcfg = rcfg.replace(n_layers=5)
+    cpu = build_model(rcfg, device="cpu", generator=torch.Generator().manual_seed(SEED))
+    gpu = build_model(rcfg.replace(remat="block"), device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(0, rcfg.vocab, (4, 48)))
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+    grads, counts = {}, {}
+    for side, m in (("cpu", cpu), ("card", gpu)):
+        for mod in (tconv, tssd, tfa):
+            mod.reset_launch_counts()
+        params = dict(m.named_parameters())
+        loss, _ = m.loss(batch)
+        grads[side] = {k: g.detach().cpu() for k, g in
+                       zip(params, torch.autograd.grad(loss, list(params.values())))}
+        counts[side] = {k: n for k, n in {**tconv.launch_counts(), **tssd.launch_counts(),
+                                          **tfa.launch_counts()}.items() if n}
+    gerr = max(float((grads["card"][k] - g).abs().max() / g.abs().max())
+               for k, g in grads["cpu"].items())
+    if gerr > TRAIN_TOL:
+        raise RuntimeError(f"reduced {arch}: gradients card vs CPU differ by {gerr:.2e} "
+                           f"of their leaves' largest")
+    if rcfg.family != "hybrid":     # forward + recompute per block
+        want = ({"flash_attention": 2 * rcfg.n_layers} if rcfg.family == "dense" else
+                {"conv1d_shuffle_w4": 2 * rcfg.n_layers, "ssd": 2 * rcfg.n_layers})
+        if counts["card"] != want:
+            raise RuntimeError(f"reduced {arch}: launches per loss + gradient "
+                               f"{counts['card']}, expected {want}")
+    opt = OptConfig(lr=TRAIN["lr"], warmup_steps=2, total_steps=10)
+    old = {k: p.detach().clone() for k, p in cpu.named_parameters()}
+    mets = {}
+    for side, m in (("cpu", cpu), ("card", gpu)):
+        _, met = make_train_step(m, opt)(init_opt_state(dict(m.named_parameters())), batch)
+        mets[side] = {k: float(v) for k, v in met.items()}
+    rel = {k: abs(mets["card"][k] - mets["cpu"][k]) / abs(mets["cpu"][k])
+           for k in ("loss", "grad_norm")}
+    if max(rel.values()) > TRAIN_TOL:
+        raise RuntimeError(f"reduced {arch}: train step card vs CPU {mets}")
+    scale = min(1.0, 1.0 / mets["cpu"]["grad_norm"])
+    card = dict(gpu.named_parameters())
+    ratio = max(float(((card[k].detach().cpu().double() - p.detach().double()).abs()
+                       / first_step_bound(old[k], p.detach(), grads["cpu"][k], scale,
+                                          mets["cpu"]["lr"], TRAIN_TOL)).max())
+                for k, p in cpu.named_parameters())
+    if ratio > 1.0:
+        raise RuntimeError(f"reduced {arch}: parameters after the step card vs CPU at "
+                           f"{ratio:.2f} of the bound")
+    report["reduced_train"] = {"grad_rel_err": gerr, "loss_rel_err": rel["loss"],
+                               "grad_norm_rel_err": rel["grad_norm"],
+                               "param_err_of_bound": ratio, "launches": counts["card"]}
+    print(f"[train] reduced {arch} ({rcfg.n_layers} layers, f32) one step on the card "
+          f"(blocks recomputed; launches for loss + gradient {counts['card']}) vs plain on "
+          f"the CPU: gradients {gerr:.2e} of each leaf's largest, loss {rel['loss']:.2e}, "
+          f"grad norm {rel['grad_norm']:.2e} relative, parameters at {ratio:.2e} of the "
+          f"AdamW first-step bound")
+
+
+def reduced_training_falls(report):
+    """``tests/test_train_integration.py::test_training_reduces_loss`` on the
+    card: reduced OLMo, 40 steps of 8 x 64 tokens at lr 3e-3; returns the
+    trained model, its optimizer state and config."""
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.models import build_model
+    from repro_torch.train import OptConfig, init_opt_state, make_train_step
+
+    rcfg = reduced(get_config("olmo-1b"))
+    model = build_model(rcfg, device="cuda")
+    step = make_train_step(model, OptConfig(lr=3e-3, warmup_steps=3, total_steps=40))
+    state = init_opt_state(dict(model.named_parameters()))
+    pipe = TokenPipeline(DataConfig(vocab=rcfg.vocab, seq_len=64, global_batch=8))
+    losses = []
+    for s in range(40):
+        state, m = step(state, {k: torch.from_numpy(v).long().cuda()
+                                for k, v in pipe.batch_at(s).items()})
+        losses.append(float(m["loss"]))
+    report["reduced_40_steps"] = {"first_loss": losses[0], "last_loss": losses[-1]}
+    print(f"[train] reduced olmo-1b on the card, 40 steps of 8 x 64 tokens: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    if not losses[-1] < losses[0] - 0.5:
+        raise RuntimeError(f"reduced olmo-1b: the loss fell from {losses[0]:.4f} only to "
+                           f"{losses[-1]:.4f}")
+    return model, state, rcfg
+
+
+def checkpoint_round_trip(report, model, state, rcfg) -> None:
+    """The trained reduced state (float32) and a reduced bf16 Mamba-2's
+    saved from the card, restored onto the card into fresh models: every
+    parameter, moment and count bitwise equal."""
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.interop import load_train_state, train_state_tree
+    from repro_torch.models import build_model
+    from repro_torch.train import init_opt_state
+
+    root = os.path.join(ROOT, "build", "smoke_checkpoints")
+    shutil.rmtree(root, ignore_errors=True)
+    bcfg = reduced(get_config(MAMBA)).replace(dtype="bfloat16")
+    bmodel = build_model(bcfg, device="cuda")
+    bstate = init_opt_state(dict(bmodel.named_parameters()))
+    leaves = 0
+    try:
+        for i, (cfg, m, st) in enumerate(((rcfg, model, state), (bcfg, bmodel, bstate))):
+            store = CheckpointStore(os.path.join(root, str(i)))
+            store.save(40, train_state_tree(cfg, m, st), extra={"data_step": 40})
+            fresh = build_model(cfg, device="cuda",
+                                generator=torch.Generator(device="cuda").manual_seed(SEED + 5))
+            fst = init_opt_state(dict(fresh.named_parameters()))
+            step, tree, extra = store.restore_latest(train_state_tree(cfg, fresh, fst))
+            fst = load_train_state(cfg, fresh, fst, tree)
+            pairs = [(p, q) for (_, p), (_, q) in zip(m.named_parameters(),
+                                                      fresh.named_parameters())]
+            pairs += [(st.mu[k], fst.mu[k]) for k in st.mu] + [(st.nu[k], fst.nu[k])
+                                                               for k in st.nu]
+            pairs.append((st.count, fst.count))
+            if (step, extra) != (40, {"data_step": 40}) or not all(
+                    q.device.type == "cuda" and p.dtype == q.dtype and torch.equal(p, q)
+                    for p, q in pairs):
+                raise RuntimeError(f"checkpoint round trip of reduced {cfg.name} "
+                                   f"({cfg.dtype}) is not bitwise")
+            leaves += len(pairs)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    report["checkpoint_round_trip_tensors"] = leaves
+    print(f"[train] checkpoint round trip on the card (reduced olmo-1b f32 after 40 "
+          f"steps, reduced mamba2-1.3b bf16): {leaves} tensors bitwise equal")
+
+
+def train_split(model, step, state, batch, arch: str):
+    """Device time of one warm full-width train step by family, from a
+    ``torch.profiler`` trace (CPU and CUDA activity), beside the step's
+    wall time measured without the profiler: the port's kernels (forward
+    and the backward's recompute), the kernels' plain-autograd backward
+    (``PlainGrad.backward``, wrapped here in a ``smoke::plain_backward``
+    range), cuBLAS elsewhere, the optimizer (in ``smoke::adamw_update``)
+    and other kernels.  A range leaves a device-side annotation spanning
+    the kernels launched inside it; a kernel belongs to the range whose
+    span holds its start (one stream, so spans hold nothing else).
+    Returns the split, the state and the launches of the traced step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.kernels import conv1d as tconv
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import ssd as tssd
+    from repro_torch.kernels.autograd import PlainGrad
+
+    port = ("ssd_tc::", "ssd::", "flash_tc::", "flash::", "conv1d_")
+    gemm = ("gemm", "xmma", "cutlass", "nvjet", "sm90_")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    for mod in (tconv, tssd, tfa):
+        mod.reset_launch_counts()
+    real_backward = PlainGrad.backward
+
+    def traced_backward(ctx, *cotangents):
+        with record_function("smoke::plain_backward"):
+            return real_backward(ctx, *cotangents)
+
+    PlainGrad.backward = staticmethod(traced_backward)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                state, _ = step(state, batch)
+                torch.cuda.synchronize()
+    finally:
+        PlainGrad.backward = staticmethod(real_backward)
+    launches = {k: n for k, n in {**tconv.launch_counts(), **tssd.launch_counts(),
+                                  **tssd.instance_counts(), **tfa.launch_counts(),
+                                  **tfa.instance_counts()}.items() if n}
+    ranges = {"smoke::plain_backward": "plain_backward", "smoke::adamw_update": "optimizer"}
+    spans, kernels = [], []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if e.name in ranges:
+            spans.append((e.time_range.start, e.time_range.end, ranges[e.name]))
+        else:
+            kernels.append(e)
+    if {f for *_, f in spans} != set(ranges.values()):
+        raise RuntimeError(f"{arch}: the trace holds no device span of {sorted(ranges)}")
+    split = dict.fromkeys(("kernels", "plain_backward", "cublas", "optimizer", "other"), 0.0)
+    for e in kernels:
+        t = e.time_range.start
+        fam = ("kernels" if any(p in e.name for p in port) else
+               next((f for a, b, f in spans if a <= t <= b), None)
+               or ("cublas" if any(g in e.name for g in gemm) else "other"))
+        split[fam] += e.device_time_total / 1e3
+    device_ms = sum(split.values())
+    print(f"[trace] {arch} warm train step: wall {wall_ms:.1f} ms, device busy "
+          f"{device_ms:.1f} ms ({100 * device_ms / wall_ms:.0f} %), idle "
+          f"{wall_ms - device_ms:.1f} ms: " + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
+          + f" ms; {len(spans)} spans")
+    if split["kernels"] <= 0 or split["plain_backward"] <= 0 or split["optimizer"] <= 0:
+        raise RuntimeError(f"{arch}: the traced train step lacks a family: {split}")
+    return {"wall_ms": wall_ms, "device_ms": device_ms, "by_family_ms": split}, state, launches
+
+
+def function_gradients(captured, rec, label) -> dict:
+    """Each kernel's autograd Function on its layer-0 inputs from training
+    step 1 (conv1d's x as the column view of the in-projection it was):
+    its output and its gradients against the plain version's autograd on
+    the same inputs and a seeded cotangent, at the kernel's bf16
+    tolerance; then the Function's backward timed (cold L2) beside the
+    plain version's forward + backward.  Returns backward ms per kernel."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import conv1d as tconv
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import ssd as tssd
+
+    rng = np.random.default_rng(SEED)
+    clone = lambda t: t.detach().clone().requires_grad_()
+    cases = {}
+    if "conv" in captured:
+        x, w, b = captured["conv"]
+        B, L, C = x.shape
+        width = x.stride(1)
+        col0 = x.storage_offset() % width
+        if x.stride() != (L * width, width, 1):
+            raise RuntimeError(f"conv1d: training's layer-0 input strides {x.stride()}")
+
+        def conv_leaves():
+            wide = torch.as_strided(x, (B, L, width), x.stride(),
+                                    x.storage_offset() - col0).detach().clone()
+            leaves = [wide.requires_grad_(), clone(w), clone(b)]
+            return leaves, (leaves[0][..., col0:col0 + C], leaves[1], leaves[2])
+
+        cases["conv1d"] = (tconv.causal_conv1d, tconv.ref.causal_conv1d, conv_leaves,
+                           CONV_TOL)
+    if "ssd" in captured:
+        *args, Q = captured["ssd"]
+
+        def ssd_leaves():
+            leaves = [clone(t) for t in args]
+            return leaves, tuple(leaves)
+
+        cases["ssd"] = (lambda *a: tssd.ssd(*a, Q), lambda *a: tssd.ref.ssd_chunked(*a, Q),
+                        ssd_leaves, SSD_TOL)
+    if "flash" in captured:
+        *qkv, causal = captured["flash"]
+
+        def flash_leaves():
+            leaves = [clone(t) for t in qkv]
+            return leaves, tuple(leaves)
+
+        cases["flash_attention"] = (lambda *a: tfa.flash_attention(*a, causal=causal),
+                                    lambda *a: tfa.ref.attention_ref(*a, causal=causal),
+                                    flash_leaves, FLASH_TOL)
+    first = lambda o: o[0] if isinstance(o, tuple) else o
+    out = {}
+    for name, (entry, plain, leaves_fn, tols) in cases.items():
+        leaves, inputs = leaves_fn()
+        y = first(entry(*inputs))
+        if type(y.grad_fn).__name__ != "PlainGradBackward":
+            raise RuntimeError(f"{name}: the entry point's output comes from {y.grad_fn}")
+        cot = randn(y.shape, y.dtype, rng)
+        got = torch.autograd.grad(y, leaves, cot, retain_graph=True)
+        pleaves, pinputs = leaves_fn()
+        py = first(plain(*pinputs))
+        want = torch.autograd.grad(py, pleaves, cot)
+        tol = tols["bfloat16" if inputs[0].dtype == torch.bfloat16 else "float32"]
+        torch.testing.assert_close(y.float(), py.float(), rtol=tol, atol=tol)
+        errs = []
+        for g, wg in zip(got, want):
+            torch.testing.assert_close(g.float(), wg.float(), rtol=tol, atol=tol)
+            errs.append(float((g.float() - wg.float()).abs().max()))
+        del got, want
+        times = cold_ms({"backward": lambda: torch.autograd.grad(y, leaves, cot,
+                                                                 retain_graph=True),
+                         "plain_forward_backward": lambda: torch.autograd.grad(
+                             first(plain(*pinputs)), pleaves, cot)}, 10)
+        out[name] = {"shapes": [tuple(t.shape) for t in inputs], "grad_max_abs_err": errs,
+                     "backward_ms": times["backward"],
+                     "plain_forward_backward_ms": times["plain_forward_backward"]}
+        print(f"[train-grad] {name} [{label}] Function on layer 0's inputs "
+              f"{[tuple(t.shape) for t in inputs]}: gradients vs the plain version's "
+              f"autograd max|err| {max(errs):.2e} (tolerance {tol}); backward (plain "
+              f"autograd) {times['backward']:.4f} ms, plain forward + backward "
+              f"{times['plain_forward_backward']:.4f} ms")
+        del y, leaves, pleaves, inputs, pinputs, py
+        torch.cuda.empty_cache()
+    rec["function_gradients"] = out
+    return out
+
+
+def training_run(report, arch: str, kernels, entries) -> None:
+    """``arch`` trained at full width through ``launch.train`` for
+    ``TRAIN["steps"]`` steps, with launch counts read around the run and
+    required to equal steps x (forward + recompute) per layer; the losses
+    finite; every parameter's gradient at step 1 finite and not zero
+    everywhere (read where the train step hands it to AdamW); the layer-0
+    inputs of each kernel at step 1 captured for the kernel entries and
+    the Function's gradient check; one more warm step traced."""
+    import numpy as np
+    import torch
+
+    import repro_torch.models.attention as attn
+    import repro_torch.models.mamba2 as m2
+    import repro_torch.train.step as tstep
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels import conv1d as tconv
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import ssd as tssd
+    from repro_torch.kernels import stencil as tstencil
+    from repro_torch.launch import train as ttrain
+    from repro_torch.train import OptConfig, init_opt_state, make_train_step
+
+    cfg = get_config(arch)
+    L = cfg.n_layers
+    per_step = ({"conv1d_shuffle_w4": 2 * L, "ssd": 2 * L, "ssd/tensor_core": 2 * L}
+                if cfg.family == "ssm" else
+                {"flash_attention": 2 * L, "flash_attention/tensor_core": 2 * L})
+    rec = report.setdefault("training", {}).setdefault(arch, {})
+    captured, first = {}, {}
+    real = (m2.causal_conv1d, m2.ssd, attn.flash_attention, tstep.adamw_update)
+
+    def capture_conv(x, w, b, mode="shuffle", activation=True):
+        captured.setdefault("conv", (x.detach(), w.detach(), b.detach()))
+        return real[0](x, w, b, mode=mode, activation=activation)
+
+    def capture_ssd(xh, dt, A, Bm, Cm, chunk):
+        captured.setdefault("ssd", (*(t.detach() for t in (xh, dt, A, Bm, Cm)), chunk))
+        return real[1](xh, dt, A, Bm, Cm, chunk)
+
+    def capture_flash(q, k, v, causal=True):
+        captured.setdefault("flash", (q.detach(), k.detach(), v.detach(), causal))
+        return real[2](q, k, v, causal=causal)
+
+    def adamw(cfg_, grads, state, params, ndims=None):
+        if "grads" not in first:
+            first["grads"] = {k: (bool(torch.isfinite(g).all()), float(g.abs().max()))
+                              for k, g in grads.items()}
+        with torch.profiler.record_function("smoke::adamw_update"):
+            return real[3](cfg_, grads, state, params, ndims)
+
+    argv = ["--arch", arch, "--device", "cuda", "--batch", str(TRAIN["batch"]),
+            "--seq", str(TRAIN["seq"]), "--steps", str(TRAIN["steps"]),
+            "--lr", str(TRAIN["lr"]), "--log-every", "1"]
+    m2.causal_conv1d, m2.ssd, attn.flash_attention = capture_conv, capture_ssd, capture_flash
+    tstep.adamw_update = adamw
+    for mod in (tconv, tssd, tfa, tstencil):
+        mod.reset_launch_counts()
+    try:
+        out = ttrain.main(argv)
+        torch.cuda.synchronize()
+        counts = {**tconv.launch_counts(), **tssd.launch_counts(), **tssd.instance_counts(),
+                  **tfa.launch_counts(), **tfa.instance_counts(), **tstencil.launch_counts()}
+        want = {k: TRAIN["steps"] * n for k, n in per_step.items()}
+        if {k: counts.get(k) for k in want} != want or \
+                any(n for k, n in counts.items() if k not in want):
+            raise RuntimeError(f"train {arch}: launches {counts}, expected {want}")
+        launches = {k: n for k, n in counts.items() if n}
+        losses = out["losses"]
+        if len(losses) != TRAIN["steps"] or not all(np.isfinite(losses)):
+            raise RuntimeError(f"train {arch}: losses {losses}")
+        bad = [k for k, (finite, mx) in first["grads"].items() if not finite or mx == 0]
+        if bad or len(first["grads"]) != len(list(out["model"].parameters())):
+            raise RuntimeError(f"train {arch}: step 1 gradients non-finite or zero: {bad}")
+        tokens = TRAIN["batch"] * TRAIN["seq"]
+        rec.update({"losses": losses, "step_ms": out["step_ms"],
+                    "tokens_per_s": tokens / (out["step_ms"] / 1e3), "peak_gib": out["peak_gib"],
+                    "wall_s": out["wall_s"], "launches": launches,
+                    "launches_per_step": per_step, "params_with_grad": len(first["grads"])})
+        print(f"[train] {arch} at full width, {TRAIN['steps']} steps of {TRAIN['batch']} x "
+              f"{TRAIN['seq']} tokens: step {out['step_ms']:.1f} ms (median after the "
+              f"first), {rec['tokens_per_s']:.0f} tokens/s, peak {out['peak_gib']:.2f} GiB; "
+              f"losses " + " ".join(f"{x:.4f}" for x in losses))
+        print(f"[train] {arch}: at step 1 all {len(first['grads'])} parameters have a "
+              f"finite gradient, none zero everywhere; launches per step "
+              + " ".join(f"{k} {n}" for k, n in per_step.items())
+              + f" (forward + recompute per layer), {TRAIN['steps']} steps: "
+              + " ".join(f"{k} {n}" for k, n in launches.items()))
+        model = out.pop("model")
+        del out
+        pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN["seq"],
+                                        global_batch=TRAIN["batch"]))
+        batch = {k: torch.from_numpy(v).long().cuda() for k, v in pipe.batch_at(0).items()}
+        state = init_opt_state(dict(model.named_parameters()))
+        step = make_train_step(model, OptConfig(lr=TRAIN["lr"], warmup_steps=5,
+                                                total_steps=TRAIN["steps"]))
+        rec["split"], state, traced = train_split(model, step, state, batch, arch)
+        if traced != per_step:
+            raise RuntimeError(f"train {arch}: the traced step launched {traced}, "
+                               f"expected {per_step}")
+        del model, state, step, batch
+    finally:
+        m2.causal_conv1d, m2.ssd, attn.flash_attention, tstep.adamw_update = real
+    torch.cuda.empty_cache()
+    label = f"{arch} train"
+    if "conv" in captured:
+        layer0_conv1d(kernels["conv"], captured["conv"], launches, rec, entries,
+                      f"conv1d_shuffle[{label}]", phase="train")
+    if "ssd" in captured:
+        layer0_ssd(kernels["ssd"], captured["ssd"], launches, rec, entries,
+                   f"ssd[{label}]", phase="train")
+    if "flash" in captured:
+        layer0_flash(kernels["flash"], captured["flash"], launches, rec, entries, label,
+                     phase="train")
+    function_gradients(captured, rec, label)
+    captured.clear()
+    torch.cuda.empty_cache()
+
+
+def training_path(kernels, report, entries) -> None:
+    """Phase 8: the reduced models' train step card vs CPU, the reduced loss
+    falling over 40 steps, a checkpoint round trip, then olmo-1b and
+    mamba2-1.3b trained at full width, one after the other."""
+    import torch
+
+    rec = report.setdefault("training", {})
+    for arch in REDUCED_TRAIN:
+        reduced_train_card_vs_cpu(rec.setdefault(arch, {}), arch)
+    model, state, rcfg = reduced_training_falls(rec)
+    checkpoint_round_trip(rec, model, state, rcfg)
+    del model, state
+    for arch in TRAIN_ARCHS:
+        torch.cuda.empty_cache()
+        training_run(report, arch, kernels, entries)
 
 
 def main() -> int:
@@ -1162,7 +1642,12 @@ def main() -> int:
     for arch in REDUCED_ONLY:
         reduced_card_vs_cpu(report["serving"].setdefault(arch, {}), arch)
 
-    # -- 8. records ------------------------------------------------------------
+    # -- 8. training: reduced card vs CPU, the loss falling, a checkpoint
+    #       round trip; olmo-1b and mamba2-1.3b at full width ----------------
+    torch.cuda.empty_cache()
+    training_path(serving_kernels, report, entries)
+
+    # -- 9. records ------------------------------------------------------------
     report["card"] = card
     report["seconds"] = time.perf_counter() - t_start
     os.makedirs(os.path.dirname(REPORT), exist_ok=True)

@@ -8,7 +8,10 @@ kernel, built at first use or in bulk by :func:`build_kernels`, or
 raises.  Neither the causal halo nor the ragged edge is padded: the
 reference's padding would copy the whole (B, L, C) input.  x may be a
 view with contiguous channels (a column range of a wider tensor): the
-kernel reads it in place.
+kernel reads it in place.  On inputs that need a gradient the kernel
+runs through :class:`~repro_torch.kernels.autograd.PlainGrad`, whose
+backward is autograd of the plain version; x's gradient then reaches the
+tensor x views.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Dict, Iterable, List, Tuple
 import torch
 
 from repro_torch.build import build_library
+from ..autograd import with_plain_grad
 from . import ref as conv_ref
 from .conv1d import MODES, Conv1dKernel, cuda_source, make_spec
 
@@ -57,11 +61,14 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                   mode: str = "shuffle", activation: bool = True) -> torch.Tensor:
     """x: (B, L, C); w: (W, C); b: (C,).  Returns (B, L, C) in x's dtype.
 
-    On the CPU the plain version runs; on the card the (mode, W) kernel.
+    On the CPU the plain version runs; on the card the (mode, W) kernel,
+    differentiable through its plain version.
     """
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
     if x.device.type == "cpu":
         return conv_ref.causal_conv1d(x, w, b, activation=activation)
     (kernel,) = build_kernels([(mode, w.shape[0])])
-    return kernel(x, w, b, activation=activation)
+    return with_plain_grad(lambda *a: kernel(*a, activation=activation),
+                           lambda *a: conv_ref.causal_conv1d(*a, activation=activation),
+                           x, w, b)

@@ -10,7 +10,9 @@ The reference pads Sq and Sk to its blocks; the kernel masks them
 instead.  A tensor on the CPU takes the plain version (:mod:`.ref`); a
 tensor on the card launches the kernel, built at first use, or raises:
 its bf16 tensor-core instance or its float32-arithmetic one, as
-:func:`select_instance` says.
+:func:`select_instance` says.  On inputs that need a gradient the kernel
+runs through :class:`~repro_torch.kernels.autograd.PlainGrad`, whose
+backward is autograd of :func:`ref.attention_ref`.
 q, k and v may be views with any batch and position strides; each
 position's (heads, Dh) must be contiguous.
 """
@@ -24,6 +26,7 @@ from typing import Optional
 import torch
 
 from repro_torch.build import Library, build_library
+from ..autograd import with_plain_grad
 from ..instances import InstanceCounts, tma_ready
 from . import ref as attn_ref
 
@@ -169,8 +172,12 @@ def reset_launch_counts() -> None:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """q: (B, Sq, H, Dh); k, v: (B, Sk, KV, Dh); H % KV == 0.
-    Returns (B, Sq, H, Dh) in q's dtype."""
+    Returns (B, Sq, H, Dh) in q's dtype; on the card differentiable
+    through the plain version."""
     if q.device.type == "cpu":
         check_contract(q, k, v, causal)
         return attn_ref.attention_ref(q, k, v, causal=causal)
-    return build_kernel()(q, k, v, causal)
+    kernel = build_kernel()
+    return with_plain_grad(lambda *a: kernel(*a, causal),
+                           lambda *a: attn_ref.attention_ref(*a, causal=causal),
+                           q, k, v)

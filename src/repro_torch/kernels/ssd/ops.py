@@ -9,7 +9,9 @@ instance (three CUDA kernels) or its float32-arithmetic one, as
 :func:`select_instance` says.  x, B and C may be
 views with any batch and position strides (the model passes slices of
 the conv output without copying them); their last dimensions must be
-contiguous.
+contiguous.  On inputs that need a gradient the kernel runs through
+:class:`~repro_torch.kernels.autograd.PlainGrad`, whose backward is
+autograd of :func:`ref.ssd_chunked`.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.build import Library, build_library
+from ..autograd import with_plain_grad
 from ..instances import InstanceCounts, tma_ready
 from . import ref as ssd_ref
 
@@ -183,8 +186,12 @@ def ssd(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """SSD forward.  xh: (B, L, H, P); dt: (B, L, H) float32 post-softplus;
     A: (H,) float32 negative; Bm, Cm: (B, L, 1, N).  L % chunk == 0.
 
-    Returns (y (B, L, H, P), final_state (B, H, N, P) float32).
+    Returns (y (B, L, H, P), final_state (B, H, N, P) float32); on the card
+    differentiable through the plain version.
     """
     if xh.device.type == "cpu":
         return ssd_ref.ssd_chunked(xh, dt, A, Bm, Cm, chunk)
-    return build_kernel()(xh, dt, A, Bm, Cm, chunk)
+    kernel = build_kernel()
+    return with_plain_grad(lambda *a: kernel(*a, chunk),
+                           lambda *a: ssd_ref.ssd_chunked(*a, chunk),
+                           xh, dt, A, Bm, Cm)

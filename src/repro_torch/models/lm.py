@@ -12,7 +12,12 @@ pytree argument:
   decode_step(tokens, cache)       -> (logits, cache)
 
 The reference scans over stacked layers; here a Python loop runs a flat
-``ModuleList`` of blocks.  Cross-entropy runs over sequence chunks
+``ModuleList`` of blocks.  Every parameter is trainable; serving runs
+under ``torch.inference_mode``.  With ``cfg.remat == "block"`` and grad
+mode on, ``hidden``/``loss`` recompute each block in the backward
+(``torch.utils.checkpoint``), where the reference wraps its scanned
+blocks in ``jax.checkpoint``; the hybrid also wraps each supercell, as
+the reference does.  Cross-entropy runs over sequence chunks
 (:func:`chunked_ce_loss`), so the (B, S, vocab) logits are never held.
 ``build_model(cfg, device, generator)`` is the factory; families whose
 path is not ported yet (moe, vlm, audio) raise ``NotImplementedError``.
@@ -25,6 +30,7 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from . import attention as attn
@@ -77,11 +83,6 @@ def _attn_cfg(cfg: ModelConfig) -> attn.AttnConfig:
         q_block=cfg.q_block, kv_block=cfg.kv_block)
 
 
-def _frozen(params: Dict[str, torch.Tensor]) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
-                             for k, v in params.items()})
-
-
 # ---------------------------------------------------------------------------
 # chunked cross-entropy
 # ---------------------------------------------------------------------------
@@ -126,7 +127,7 @@ class SSMBlock(nn.Module):
     def __init__(self, cfg: ModelConfig, scfg: m2.SSMConfig,
                  gen: torch.Generator, dtype: torch.dtype):
         super().__init__()
-        self.ln = _frozen(init_norm(cfg.d_model, cfg.norm, dtype, gen.device))
+        self.ln = nn.ParameterDict(init_norm(cfg.d_model, cfg.norm, dtype, gen.device))
         self.mamba = m2.Mamba2(scfg, gen, dtype)
 
 
@@ -152,7 +153,7 @@ class TBlock(nn.Module):
     def __init__(self, cfg: ModelConfig, gen: torch.Generator, dtype: torch.dtype):
         super().__init__()
         for name, params in init_tblock(gen, cfg, dtype).items():
-            setattr(self, name, _frozen(params))
+            setattr(self, name, nn.ParameterDict(params))
 
 
 def apply_tblock(p: TBlock, x: torch.Tensor, cfg: ModelConfig):
@@ -203,11 +204,11 @@ class Model(nn.Module):
         generator = _generator(dev, generator)
         self.cfg = cfg
         self.dtype = _dtype(cfg)
-        self.embed = _frozen({"table": embed_init(
+        self.embed = nn.ParameterDict({"table": embed_init(
             generator, (cfg.padded_vocab, cfg.d_model), self.dtype)})
         self.blocks = nn.ModuleList([self._block(generator)
                                      for _ in range(cfg.n_layers)])
-        self.ln_f = _frozen(init_norm(cfg.d_model, cfg.norm, self.dtype, dev))
+        self.ln_f = nn.ParameterDict(init_norm(cfg.d_model, cfg.norm, self.dtype, dev))
 
     def _block(self, gen: torch.Generator) -> nn.Module:
         return TBlock(self.cfg, gen, self.dtype)
@@ -227,10 +228,17 @@ class Model(nn.Module):
         return self._logits(apply_norm(self.ln_f, x, cfg.norm, impl=cfg.norm_impl))
 
     # -- full-sequence forward ----------------------------------------------
+    def _remat(self, fn, *args):
+        """``fn(*args)``, recomputed in the backward when ``cfg.remat`` is
+        "block" and grad mode is on."""
+        if self.cfg.remat == "block" and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
     def _backbone(self, x: torch.Tensor):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for blk in self.blocks:
-            x, a = apply_tblock(blk, x, self.cfg)
+            x, a = self._remat(apply_tblock, blk, x, self.cfg)
             aux = aux + a
         return x, aux
 
@@ -308,7 +316,7 @@ class SSMModel(Model):
 
     def _backbone(self, x: torch.Tensor):
         for i in range(self.cfg.n_layers):
-            x = self._mamba(i, x)
+            x = self._remat(self._mamba, i, x)
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
     def init_cache(self, batch_size: int, seq_len: int) -> Dict[str, Any]:
@@ -393,14 +401,20 @@ class HybridModel(SSMModel):
         cache["attn_v"] = torch.zeros(shape, dtype=self.dtype, device=self.device)
         return cache
 
-    def _backbone(self, x: torch.Tensor):
+    def _supercell(self, s: int, x: torch.Tensor) -> torch.Tensor:
+        """The shared attention block, then supercell s's Mamba-2 blocks
+        (each one recomputed on its own under remat)."""
         ne = self.cfg.attn_every
+        x = apply_tblock(self.shared_attn, x, self.cfg)[0]
+        for j in range(ne):
+            x = self._remat(self._mamba, s * ne + j, x)
+        return x
+
+    def _backbone(self, x: torch.Tensor):
         for s in range(self.n_super):
-            x = apply_tblock(self.shared_attn, x, self.cfg)[0]
-            for j in range(ne):
-                x = self._mamba(s * ne + j, x)
+            x = self._remat(self._supercell, s, x)
         for t in range(self.n_trail):
-            x = self._mamba(self.n_super * ne + t, x)
+            x = self._remat(self._mamba, self.n_super * self.cfg.attn_every + t, x)
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
     @torch.inference_mode()

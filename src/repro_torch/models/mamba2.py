@@ -11,7 +11,10 @@ The conv reads its input, xin|B|C, in place as the in-projection's
 column range, where the reference concatenates the three; the conv state
 kept for decode is a copy of that range's last W - 1 rows.  Decode is
 plain PyTorch, as it is plain jnp in the reference.  The projections are
-``torch.matmul``.
+``torch.matmul``.  On the card both kernels are differentiable through
+their plain versions (``kernels/autograd.py``), so a loss carries its
+gradient through the conv and the scan to the in-projection, ``conv_w``,
+``a_log`` and ``dt_bias``.
 """
 
 from __future__ import annotations
@@ -112,7 +115,7 @@ class Mamba2(nn.Module):
         super().__init__()
         self.cfg = cfg
         for name, value in init_mamba2(gen, cfg, dtype).items():
-            self.register_parameter(name, nn.Parameter(value, requires_grad=False))
+            self.register_parameter(name, nn.Parameter(value))
 
     def _params(self) -> Params:
         return dict(self.named_parameters())

@@ -1,0 +1,120 @@
+"""AdamW + global-norm clipping + cosine schedule (mirrors
+``src/repro/train/optim.py``).
+
+The reference's arithmetic, over a dict of named tensors (the model's
+``named_parameters()``) instead of a pytree: first and second moments in
+float32 whatever the parameter's dtype; the whole gradient clipped by its
+global norm; ``count`` incremented before the schedule reads it; bias
+corrections ``1 - b**count``; the step ``mhat / (sqrt(vhat) + eps)``
+plus ``weight_decay * p`` for leaves of two or more dimensions; the new
+parameter computed in float32 and cast to the parameter's dtype.  The
+reference's leaves stack each block parameter on a layer axis, so it
+decays every block parameter, vectors included: ``ndims`` carries those
+dimensions (``interop.reference_ndims``).
+``torch.optim.AdamW`` differs on each of these points.  The reference
+returns new arrays; here the parameters and moments are updated in place,
+which saves a copy of each on the card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Iterable, Mapping, NamedTuple, Optional, Tuple
+
+import torch
+
+Tensors = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class OptConfig:
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_frac: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+
+
+class OptState(NamedTuple):
+    mu: Tensors              # first moment, float32, keyed like the params
+    nu: Tensors              # second moment, float32
+    count: torch.Tensor      # int32 scalar: updates taken
+
+
+def lr_schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
+    """Linear warmup to ``cfg.lr``, then a cosine down to
+    ``min_lr_frac * lr`` at ``total_steps``; float32."""
+    step = step.float()
+    warm = cfg.lr * step / max(cfg.warmup_steps, 1)
+    prog = torch.clamp((step - cfg.warmup_steps)
+                       / max(cfg.total_steps - cfg.warmup_steps, 1), 0.0, 1.0)
+    cos = cfg.min_lr_frac + (1 - cfg.min_lr_frac) * 0.5 * (
+        1 + torch.cos(math.pi * prog))
+    return torch.where(step < cfg.warmup_steps, warm, cfg.lr * cos)
+
+
+def init_opt_state(params: Mapping[str, torch.Tensor]) -> OptState:
+    return OptState(
+        mu={k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            for k, p in params.items()},
+        nu={k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            for k, p in params.items()},
+        count=torch.zeros((), dtype=torch.int32,
+                          device=next(iter(params.values())).device))
+
+
+def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, in float32."""
+    return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tensors))
+
+
+@torch.no_grad()
+def adamw_update(cfg: OptConfig, grads: Mapping[str, torch.Tensor], state: OptState,
+                 params: Mapping[str, torch.Tensor],
+                 ndims: Optional[Mapping[str, int]] = None
+                 ) -> Tuple[Mapping[str, torch.Tensor], OptState, Tensors]:
+    """One AdamW step.  ``params``, ``state.mu`` and ``state.nu`` are
+    updated in place; returns (params, new state, {"grad_norm", "lr"})
+    with the gradient norm taken before clipping.  A parameter is decayed
+    where ``ndims`` (its own dimensions if None) is 2 or more."""
+    gnorm = global_norm(grads[k] for k in params)
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
+    count = state.count + 1
+    lr = lr_schedule(cfg, count)
+    b1c = 1 - cfg.b1 ** count.float()
+    b2c = 1 - cfg.b2 ** count.float()
+    for k, p in params.items():
+        g = grads[k].float() * scale
+        m, v = state.mu[k], state.nu[k]
+        m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
+        v.copy_(cfg.b2 * v + (1 - cfg.b2) * torch.square(g))
+        step = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
+        if (p.ndim if ndims is None else ndims[k]) >= 2:   # decoupled decay
+            step = step + cfg.weight_decay * p.float()
+        p.copy_(p.float() - lr * step)
+    return params, OptState(state.mu, state.nu, count), {"grad_norm": gnorm, "lr": lr}
+
+
+def first_step_bound(old: torch.Tensor, new: torch.Tensor, grad: torch.Tensor,
+                     scale: float, lr: float, delta_rel: float,
+                     eps: float = OptConfig.eps) -> torch.Tensor:
+    """Per element (float64), how far two AdamW first steps may put a
+    parameter apart when their gradients agree to ``delta_rel`` of the
+    leaf's largest |g|, the gradient clipped by ``scale``; ``old`` and
+    ``new`` are one side's parameter before and after.  The first update
+    is lr g / (|g| + eps) plus a decay term equal on both sides: an error
+    delta in g moves it by at most lr eps delta / (|g| - delta)^2 where
+    |g| > delta, and by at most 2 lr where not; plus float32 rounding of
+    the parameter before and after.  A checking helper for the tests and
+    the card's smoke run, which compare train steps across devices and
+    packages."""
+    g = grad.double().abs() * scale
+    delta = delta_rel * float(g.max())
+    far = torch.where(g > delta, eps * delta / (g - delta).clamp(min=1e-300) ** 2,
+                      torch.full_like(g, 2.0))
+    return lr * far.clamp(max=2.0) + 1e-6 * (old.double().abs() + new.double().abs())

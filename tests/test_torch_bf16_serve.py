@@ -97,7 +97,7 @@ def _logits(arch, seed=0):
                                  table))[..., :model.cfg.vocab]
     want_last, _ = jm.prefill(params, {"tokens": jnp.asarray(toks)})
     np.testing.assert_allclose(want[:, -1], np.asarray(want_last), rtol=0, atol=1e-6)
-    return got.numpy(), want
+    return got.detach().numpy(), want
 
 
 def _reading(got, want):

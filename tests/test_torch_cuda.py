@@ -529,3 +529,160 @@ def test_dense_prefill_on_card_matches_plain(card, arch):
     batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
     torch.testing.assert_close(gpu.loss(batch)[0].cpu(), cpu.loss(batch)[0],
                                rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# training: each kernel's autograd Function, and a reduced train step
+# ---------------------------------------------------------------------------
+
+def _first(out):
+    return out[0] if isinstance(out, tuple) else out
+
+
+def _function_vs_plain(counts, entry, plain, make, tol, seed):
+    """``entry`` (the kernel's public entry point, through its autograd
+    Function on the card; ``counts`` its package) against autograd of
+    ``plain`` on equal inputs and a seeded cotangent: the output and every
+    gradient within ``tol``; the forward launches once, the backward
+    never."""
+    leaves, inputs = make()
+    counts.reset_launch_counts()
+    y = _first(entry(*inputs))
+    launched = sum(counts.launch_counts().values())
+    assert launched == 1 and type(y.grad_fn).__name__ == "PlainGradBackward"
+    cot = _randn(y.shape, y.dtype, np.random.default_rng(seed))
+    got = torch.autograd.grad(y, leaves, cot)
+    assert sum(counts.launch_counts().values()) == 1           # none in the backward
+    pleaves, pinputs = make()
+    want = torch.autograd.grad(_first(plain(*pinputs)), pleaves, cot)
+    torch.testing.assert_close(y.float(), _first(plain(*pinputs)).float(), rtol=tol, atol=tol)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+    return got
+
+
+@pytest.mark.parametrize("shape", [(3, 37, 77, 4, 0, 0), (2, 333, 200, 3, 0, 0),
+                                   (2, 129, 456, 4, 4097, 63), (1, 70, 200, 4, 4096, 65)])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_conv1d_function_gradient_matches_plain(card, shape, dtype):
+    """Ragged shapes, and x as a column slice of a wider tensor at odd row
+    strides and bases: the gradient lands in x's columns of that tensor,
+    and nowhere else."""
+    B, L, C, W, left, right = shape
+    rng = np.random.default_rng(sum(shape))
+    wide0 = _randn((B, L, left + C + right), DTYPES[dtype], rng)
+    w0, b0 = _randn((W, C), DTYPES[dtype], rng), _randn((C,), DTYPES[dtype], rng)
+
+    def make():
+        leaves = [t.clone().requires_grad_() for t in (wide0, w0, b0)]
+        return leaves, (leaves[0][..., left:left + C], leaves[1], leaves[2])
+
+    gwide = _function_vs_plain(tconv, tconv.causal_conv1d, tconv.ref.causal_conv1d, make,
+                               CONV_TOL[dtype], 1)[0]
+    assert float(gwide[..., :left].abs().sum()) == 0 == float(gwide[..., left + C:].abs().sum())
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 4, 16, 16, 16), (1, 96, 3, 8, 16, 32),
+                                   (2, 512, 6, 64, 64, 64), (1, 256, 4, 64, 128, 256)])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_ssd_function_gradient_matches_plain(card, shape, dtype):
+    """Both instances (the bf16 shapes with P 64 run on ``tensor_core``);
+    gradients for xh, dt, A, Bm and Cm from y's cotangent alone."""
+    B, L, H, P, N, Q = shape
+    rng = np.random.default_rng(sum(shape))
+    xh = _randn((B, L, H, P), DTYPES[dtype], rng)
+    dt = torch.from_numpy(rng.uniform(0.01, 0.2, (B, L, H)).astype(np.float32)).cuda()
+    A = -torch.from_numpy(rng.uniform(0.5, 2.0, (H,)).astype(np.float32)).cuda()
+    Bm, Cm = _randn((B, L, 1, N), DTYPES[dtype], rng), _randn((B, L, 1, N), DTYPES[dtype], rng)
+
+    def make():
+        leaves = [t.clone().requires_grad_() for t in (xh, dt, A, Bm, Cm)]
+        return leaves, tuple(leaves)
+
+    grads = _function_vs_plain(tssd, lambda *a: tssd.ssd(*a, Q), lambda *a: tssd.ref.ssd_chunked(*a, Q),
+                               make, SSD_TOL[dtype], 2)
+    assert all(float(g.abs().max()) > 0 for g in grads)
+
+
+_FLASH_GRAD_SHAPES = [(1, 100, 100, 4, 4, 8, True), (2, 64, 64, 8, 2, 16, False),
+                      (2, 200, 200, 8, 2, 128, True), (1, 130, 250, 8, 2, 128, True),
+                      (1, 300, 177, 4, 2, 64, True)]
+
+
+@pytest.mark.parametrize("shape", _FLASH_GRAD_SHAPES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_flash_function_gradient_matches_plain(card, shape, dtype):
+    """GQA and MHA, causal and not, ragged Sq and Sk."""
+    B, Sq, Sk, H, KV, Dh, causal = shape
+    q, k, v = _qkv(B, Sq, Sk, H, KV, Dh, DTYPES[dtype], sum(shape))
+
+    def make():
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        return leaves, tuple(leaves)
+
+    _function_vs_plain(tfa, lambda *a: tfa.flash_attention(*a, causal=causal),
+                       lambda *a: tfa.ref.attention_ref(*a, causal=causal),
+                       make, FLASH_TOL[dtype], 3)
+
+
+def test_grad_disabled_forward_launches_once_per_call(card):
+    """With trainable parameters but grad mode off (and under inference
+    mode), each entry point launches exactly one kernel per call and its
+    result has no graph."""
+    cfg = reduced(get_config("zamba2-1.2b")).replace(n_layers=5)
+    model = build_model(cfg, device="cuda")
+    assert all(p.requires_grad for p in model.parameters())
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 48))).cuda()
+    for ctx in (torch.no_grad, torch.inference_mode):
+        for mod in (tconv, tssd, tfa):
+            mod.reset_launch_counts()
+        with ctx():
+            h, _ = model.hidden({"tokens": tokens})
+        torch.cuda.synchronize()
+        assert h.grad_fn is None
+        assert tconv.launch_counts()["conv1d_shuffle_w4"] == cfg.n_layers
+        assert tssd.launch_counts()["ssd"] == cfg.n_layers
+        assert tfa.launch_counts()["flash_attention"] == model.n_super
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "mamba2-1.3b", "zamba2-1.2b"])
+def test_reduced_train_step_on_card_matches_cpu(card, arch):
+    """One train step of the reduced float32 model on the card (blocks
+    recomputed) against the CPU from the same weights: every gradient
+    within delta = 1e-4 of its leaf's largest, the loss and gradient norm
+    within 1e-4 relative (the reduced models' card-vs-CPU tolerance), and
+    each parameter after AdamW's first step within what such gradients
+    allow (``train.optim.first_step_bound``)."""
+    from repro_torch.train import OptConfig, init_opt_state, make_train_step
+    from repro_torch.train.optim import first_step_bound
+
+    cfg = reduced(get_config(arch))
+    if cfg.family == "hybrid":
+        cfg = cfg.replace(n_layers=5)
+    cpu = build_model(cfg, device="cpu")
+    gpu = build_model(cfg.replace(remat="block"), device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (4, 48)))
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+    grads = []
+    for m in (cpu, gpu):
+        params = dict(m.named_parameters())
+        loss, _ = m.loss(batch)
+        grads.append({k: g.detach().cpu() for k, g in
+                      zip(params, torch.autograd.grad(loss, list(params.values())))})
+    for k, g in grads[0].items():
+        torch.testing.assert_close(grads[1][k], g, rtol=0, atol=1e-4 * float(g.abs().max()))
+    old = {k: p.detach().clone() for k, p in cpu.named_parameters()}
+    opt = OptConfig(lr=3e-3, warmup_steps=2, total_steps=10)
+    mets = [make_train_step(m, opt)(init_opt_state(dict(m.named_parameters())), batch)[1]
+            for m in (cpu, gpu)]
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(mets[1][key]), float(mets[0][key]), rtol=1e-4)
+    lr = float(mets[0]["lr"])
+    scale = min(1.0, 1.0 / float(mets[0]["grad_norm"]))
+    card = dict(gpu.named_parameters())
+    for k, p in cpu.named_parameters():
+        tol = first_step_bound(old[k], p.detach(), grads[0][k], scale, lr, 1e-4)
+        diff = (card[k].detach().cpu().double() - p.detach().double()).abs()
+        assert bool((diff <= tol).all()), k

@@ -149,8 +149,8 @@ def test_port_imports_neither_jax_nor_reference():
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
     assert len(names) >= 20
-    for pkg in ("configs", "models", "data", "serve", "launch",
-                "kernels.conv1d", "kernels.ssd", "kernels.flash_attention"):
+    for pkg in ("configs", "models", "data", "serve", "launch", "train", "checkpoint",
+                "runtime", "kernels.conv1d", "kernels.ssd", "kernels.flash_attention"):
         assert f"repro_torch.{pkg}" in names, pkg
     for mod in ("configs.mamba2_1_3b", "configs.zamba2_1_2b", "configs.olmo_1b",
                 "configs.yi_9b", "configs.starcoder2_3b", "configs.deepseek_67b",
@@ -158,5 +158,7 @@ def test_port_imports_neither_jax_nor_reference():
                 "models.attention", "models.mlp", "models.lm",
                 "data.pipeline", "serve.step", "launch.serve",
                 "kernels.conv1d.ops", "kernels.ssd.ops",
-                "kernels.flash_attention.ops", "kernels.flash_attention.ref"):
+                "kernels.flash_attention.ops", "kernels.flash_attention.ref",
+                "kernels.autograd", "train.optim", "train.step", "checkpoint.store",
+                "runtime.health", "launch.train"):
         assert f"repro_torch.{mod}" in names, mod

@@ -113,7 +113,7 @@ def test_loss_matches_reference(arch):
     tbatch = {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(labels)}
     jh, _ = jm.hidden(params, jbatch)
     th, _ = model.hidden(tbatch)
-    np.testing.assert_allclose(th.numpy(), np.asarray(jh), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(th.detach().numpy(), np.asarray(jh), rtol=1e-5, atol=1e-5)
     (jl, jmet), (tl, tmet) = jm.loss(params, jbatch), model.loss(tbatch)
     np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5, atol=1e-5)
     for key in ("ce", "aux"):
