@@ -68,20 +68,31 @@ Phases, each fatal on failure:
    against the plain version and timed beside ``scaled_dot_product_attention``;
    the reduced model on the card against the CPU (logits, greedy tokens
    and the loss), also for starcoder2-3b, which runs reduced only; f32
-   continuity at full width for olmo-1b;
-8. the training path: one train step of the reduced olmo-1b, mamba2-1.3b
-   and zamba2-1.2b in float32 on the card (every kernel through its
+   continuity at full width for olmo-1b; then the MoE and enc-dec paths
+   the same way: granite-moe-1b-a400m (24 layers, GQA 16/8 at Dh 64, 32
+   experts top-8 by the dense dispatch; 24 flash launches per prefill,
+   its traced prefill with a ``moe`` share for the expert products, f32
+   continuity) and seamless-m4t-large-v2 (24 encoder layers, non-causal
+   over 1024 seeded frames, and 24 decoder layers with cross attention;
+   48 flash launches per prefill, none per decode step; its first
+   encoder and first decoder call held and timed); kimi-k2-1t-a32b and
+   llama-3.2-vision-90b (gates set non-zero) reduced only, card vs CPU;
+8. the training path: one train step of the reduced olmo-1b, mamba2-1.3b,
+   zamba2-1.2b, granite-moe-1b-a400m, seamless-m4t-large-v2 and
+   llama-3.2-vision-90b in float32 on the card (every kernel through its
    autograd Function, blocks recomputed) against the CPU (gradients, loss,
    gradient norm, parameters after AdamW); the reduced olmo-1b's loss
    falling over 40 steps on the card; a checkpoint round trip on the card
-   (float32 and bf16), bitwise; then olmo-1b and mamba2-1.3b at published
-   widths (bf16, random weights from a seed) trained through
-   ``repro_torch.launch.train`` for 6 steps of 4 x 1024 tokens, one after
-   the other, with launch counts read around the run (per step forward +
-   recompute: 32 flash-attention launches for OLMo, 96 conv1d ``shuffle``
-   and 96 SSD for Mamba-2, every flash and SSD call on ``tensor_core``),
-   every loss finite and every parameter's gradient at step 1 finite and
-   not zero everywhere; the layer-0 inputs of each kernel at step 1 held
+   (float32 and bf16), bitwise; then olmo-1b, mamba2-1.3b and
+   granite-moe-1b-a400m at published widths (bf16, random weights from a
+   seed) trained through ``repro_torch.launch.train`` for 6 steps of 4 x
+   1024 tokens, one after the other, with launch counts read around the
+   run (per step forward + recompute: 32 flash-attention launches for
+   OLMo, 48 for Granite, 96 conv1d ``shuffle`` and 96 SSD for Mamba-2,
+   every flash and SSD call on ``tensor_core``), every loss finite and
+   every parameter's gradient at step 1 finite and not zero everywhere
+   (Granite's experts that no token chose counted); the layer-0 inputs of
+   each kernel at step 1 held
    and timed as in phases 5-7, and the kernel's autograd Function held
    against the plain version's autograd on them, its backward timed; one
    more warm step traced and split into the kernels, their plain-autograd
@@ -129,22 +140,30 @@ FLASH_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:33"
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 MAMBA, HYBRID = "mamba2-1.3b", "zamba2-1.2b"
 DENSE = ("olmo-1b", "yi-9b")                        # served at full width
-REDUCED_ONLY = ("starcoder2-3b",)                   # card vs CPU, reduced
+MOE, ENCDEC = "granite-moe-1b-a400m", "seamless-m4t-large-v2"     # the same
+# card vs CPU, reduced only: kimi-k2 (1.04 T parameters) and
+# llama-3.2-vision-90b (86.6 B) do not fit one card
+REDUCED_ONLY = ("starcoder2-3b", "kimi-k2-1t-a32b", "llama-3.2-vision-90b")
 # f32 continuity at full width; Yi-9B in f32 (34 GB) would hold nothing
 # about the dense k/v cache that olmo-1b's run does not
-CONTINUITY_ARCHS = (MAMBA, HYBRID, "olmo-1b")
+CONTINUITY_ARCHS = (MAMBA, HYBRID, "olmo-1b", MOE)
+# the VLM's gates are 0 at init, which makes its cross blocks no-ops; the
+# card-vs-CPU checks set them to this on both sides
+VLM_GATE = 0.5
 SERVE = dict(batch=4, prompt_len=1024, gen=32)      # 4 chunks of 256 per prompt
 CONV_TOL = {"float32": 1e-5, "bfloat16": 5e-2}      # the reference kernel tests'
 SSD_TOL = {"float32": 1e-4, "bfloat16": 8e-2}       # the reference kernel tests'
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 6e-2}     # the reference kernel tests'
 # (B, Sq, Sk, H, KV, Dh, causal): tests/test_kernels.py's five shapes, Sq
 # above a ragged Sk, GQA with Dh 128, ragged Sq and Sk at Dh 64 and (GQA)
-# 128, and the serving shape
+# 128, and the serving shapes: Zamba2's, Granite's (GQA 16/8 at Dh 64) and
+# the Seamless encoder's (non-causal over 1024 frames)
 FLASH_SHAPES = [(2, 64, 64, 4, 2, 16, True), (1, 100, 100, 4, 4, 8, True),
                 (2, 64, 64, 8, 2, 16, False), (1, 33, 33, 2, 1, 32, True),
                 (2, 48, 96, 4, 1, 16, True), (1, 40, 20, 2, 1, 8, True),
                 (2, 200, 200, 8, 2, 128, True), (1, 300, 177, 4, 2, 64, True),
-                (1, 130, 250, 8, 2, 128, True), (4, 1024, 1024, 32, 32, 64, True)]
+                (1, 130, 250, 8, 2, 128, True), (4, 1024, 1024, 32, 32, 64, True),
+                (4, 1024, 1024, 16, 8, 64, True), (4, 1024, 1024, 16, 16, 64, False)]
 # f32 continuity at full width: prefill 512 vs prefill 256 + 256 decode
 # steps, 48 layers (16 for olmo-1b).  Both sides are exact float32
 # algorithms that sum in other orders (a chunked scan against a
@@ -157,12 +176,12 @@ CONTINUITY_TOL = 1e-3
 # training at full width: the serving cells' traffic (4 x 1024 tokens from
 # TokenPipeline(seed=0)), 6 steps, no checkpoint (a save would write 12-16 GB)
 TRAIN = dict(batch=4, seq=1024, steps=6, lr=3e-3)
-TRAIN_ARCHS = ("olmo-1b", MAMBA)
+TRAIN_ARCHS = ("olmo-1b", MAMBA, MOE)
 # one train step card vs CPU, reduced float32 (the hybrid with 5 layers):
 # loss, gradient norm and every gradient (of its leaf's largest) within
 # 1e-4, the reduced models' card-vs-CPU tolerance; each parameter after
 # the step within train.optim.first_step_bound of that gradient tolerance
-REDUCED_TRAIN = ("olmo-1b", MAMBA, HYBRID)
+REDUCED_TRAIN = ("olmo-1b", MAMBA, HYBRID, MOE, ENCDEC, "llama-3.2-vision-90b")
 TRAIN_TOL = 1e-4
 
 
@@ -272,22 +291,45 @@ def check_tensor_cores(name: str, tc: dict, other: dict, report) -> None:
     report["sass"][name] = {"tensor_core": tc, "cuda_core": other}
 
 
-def kernel_times(fn, n: int = 5) -> dict:
-    """Device microseconds per call of each CUDA kernel that ``fn``
-    launches, from a torch.profiler trace of n calls."""
+def traced(fn, what: str, attempts: int = 3):
+    """The events of a ``torch.profiler`` trace (CPU and CUDA activity) of
+    ``fn()``.  A trace that holds no device event at all is taken again, up
+    to ``attempts`` traces, each reported: the profiler's device tracing has
+    come back empty on a card whose kernels ran (a trace of five SSD calls
+    once held nothing).  A trace with device events is returned as it is,
+    so a kernel missing from it still fails the caller's checks."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(1, attempts + 1):
+        with warnings.catch_warnings():         # the profiler's note on its cycles
+            warnings.simplefilter("ignore", UserWarning)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+        events = prof.events()
+        if any(e.device_type == DeviceType.CUDA for e in events):
+            return events
+        print(f"[profiler] {what}: trace {attempt} of {attempts} held no device event",
+              flush=True)
+    raise RuntimeError(f"{what}: {attempts} profiler traces held no device event")
+
+
+def kernel_times(fn, what: str, n: int = 5) -> dict:
+    """Device microseconds per call of each CUDA kernel that ``fn``
+    launches, from a trace of n calls."""
+    import torch
+    from torch.autograd import DeviceType
 
     fn()
     torch.cuda.synchronize()
-    with warnings.catch_warnings():             # the profiler's note on its cycles
-        warnings.simplefilter("ignore", UserWarning)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-    return {e.key.split("(")[0]: e.device_time_total / n
-            for e in prof.key_averages() if e.device_time_total > 0}
+    us = {}
+    for e in traced(lambda: [fn() for _ in range(n)], what):
+        if e.device_type == DeviceType.CUDA:
+            key = e.name.split("(")[0]
+            us[key] = us.get(key, 0.0) + e.device_time_total / n
+    return us
 
 
 def cold_ms(fns: dict, n: int) -> dict:
@@ -476,32 +518,73 @@ def flash_parity(fa_kernel, report) -> None:
                   f"max|err| {err:.2e}{rounded_note(rounded)}")
 
 
-def reduced_card_vs_cpu(report, arch: str) -> None:
-    """The reduced model on the card (every kernel) against the plain path
-    on the CPU with the same weights: logits, greedy tokens and the loss.
-    The hybrid keeps 5 layers: two supercells and a trailing block."""
-    import numpy as np
+def flash_per_forward(cfg) -> int:
+    """Flash-attention launches of one full-sequence forward of ``cfg``:
+    one per self-attention layer (the encoder's too; cross attention never
+    reaches the kernel), one per application of the hybrid's shared
+    block."""
+    L = cfg.n_layers
+    return {"dense": L, "moe": L, "audio": L + cfg.n_encoder_layers,
+            "vlm": L // max(cfg.cross_every, 1) * (cfg.cross_every - 1),
+            "hybrid": L // cfg.attn_every}.get(cfg.family, 0)
+
+
+def stub_batch(cfg, B: int, rng, device) -> dict:
+    """The launcher's stubbed media (vlm) or frames (audio), drawn as
+    seeded standard normals, as the reference's model tests draw them; {}
+    for the other families."""
+    import torch
+
+    from repro_torch.launch.serve import stub_inputs
+
+    return {k: randn(tuple(v.shape), torch.float32, rng, device)
+            for k, v in stub_inputs(cfg, B, "meta").items()}
+
+
+def reduced_pair(arch: str, remat: str = "none"):
+    """The reduced config (the hybrid with 5 layers: two supercells and a
+    trailing block), a model on the CPU from the seed and one on the card
+    with the same weights (``remat`` on the card's), the VLM's gates at
+    VLM_GATE on both."""
     import torch
 
     from repro_torch.configs import get_config, reduced
     from repro_torch.models import build_model
-    from repro_torch.serve import generate
 
     rcfg = reduced(get_config(arch))
     if rcfg.family == "hybrid":
         rcfg = rcfg.replace(n_layers=5)
     cpu = build_model(rcfg, device="cpu", generator=torch.Generator().manual_seed(SEED))
-    gpu = build_model(rcfg, device="cuda")
+    with torch.no_grad():
+        for cross in getattr(cpu, "cross", ()):
+            cross.gate.fill_(VLM_GATE)
+    gpu = build_model(rcfg.replace(remat=remat), device="cuda")
     gpu.load_state_dict(cpu.state_dict())
-    toks = torch.from_numpy(np.random.default_rng(SEED).integers(0, rcfg.vocab, (2, 48)))
-    got, _ = gpu.prefill({"tokens": toks.cuda()})
-    ref, _ = cpu.prefill({"tokens": toks})
+    return rcfg, cpu, gpu
+
+
+def reduced_card_vs_cpu(report, arch: str) -> None:
+    """The reduced model on the card (every kernel) against the plain path
+    on the CPU with the same weights (``reduced_pair``): logits, greedy
+    tokens and the loss, with seeded media or frames."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import generate
+
+    rcfg, cpu, gpu = reduced_pair(arch)
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, rcfg.vocab, (2, 48)))
+    stub = stub_batch(rcfg, 2, rng, "cpu")
+    on_card = {"tokens": toks.cuda(), **{k: v.cuda() for k, v in stub.items()}}
+    got, _ = gpu.prefill(on_card)
+    ref, _ = cpu.prefill({"tokens": toks, **stub})
     err = float((got.cpu() - ref).abs().max())
     torch.testing.assert_close(got.cpu(), ref, rtol=1e-4, atol=1e-4)
-    if not torch.equal(generate(gpu, {"tokens": toks.cuda()}, 8).cpu(),
-                       generate(cpu, {"tokens": toks}, 8)):
+    if not torch.equal(generate(gpu, on_card, 8).cpu(),
+                       generate(cpu, {"tokens": toks, **stub}, 8)):
         raise RuntimeError(f"reduced {arch}: greedy tokens differ card vs CPU")
-    batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1), **stub}
     with torch.inference_mode():
         loss, ref_loss = gpu.loss(batch)[0].cpu(), cpu.loss(batch)[0]
     loss_err = float((loss - ref_loss).abs())
@@ -515,10 +598,16 @@ def reduced_card_vs_cpu(report, arch: str) -> None:
 
 def prefill_split(model, batch, arch: str) -> dict:
     """Device time of one warm full-width prefill by kernel family, from a
-    ``torch.profiler`` trace (CUDA activity only), beside the prefill's
-    wall time measured without the profiler."""
+    ``torch.profiler`` trace (CPU and CUDA activity), beside the prefill's
+    wall time measured without the profiler.  A MoE's expert products
+    (``moe._expert_ffn``, wrapped here in a ``smoke::moe`` range) are the
+    ``moe`` family: every kernel that starts inside that range's device
+    span, as ``train_split`` reads its ranges."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    from torch.profiler import record_function
+
+    import repro_torch.models.moe as moem
 
     families = (("ssd", ("ssd_tc::", "ssd::")), ("flash_attention", ("flash_tc::", "flash::")),
                 ("conv1d", ("conv1d_",)), ("cat", ("CatArrayBatchedCopy",)),
@@ -529,28 +618,42 @@ def prefill_split(model, batch, arch: str) -> dict:
     model.prefill(batch)
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", UserWarning)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            model.prefill(batch)
-            torch.cuda.synchronize()
+    real_ffn = moem._expert_ffn
+
+    def traced_ffn(*args):
+        with record_function("smoke::moe"):
+            return real_ffn(*args)
+
+    moem._expert_ffn = traced_ffn
+    try:
+        events = traced(lambda: model.prefill(batch), f"{arch} prefill")
+    finally:
+        moem._expert_ffn = real_ffn
+    spans, kernels = [], []
+    for e in events:
+        if e.device_type == DeviceType.CUDA:
+            (spans if e.name == "smoke::moe" else kernels).append(e)
+    spans = [(e.time_range.start, e.time_range.end) for e in spans]
     split, other = {name: 0.0 for name, _ in families}, {}
-    for e in prof.key_averages():
-        if e.device_time_total <= 0:
-            continue
-        fam = next((name for name, keys in families
-                    if any(k in e.key for k in keys)), None)
+    if spans:
+        split["moe"] = 0.0
+    for e in kernels:
+        t, ms = e.time_range.start, e.device_time_total / 1e3
+        fam = ("moe" if any(a <= t <= b for a, b in spans) else
+               next((name for name, keys in families if any(k in e.name for k in keys)), None))
         if fam is None:
-            other[e.key[:60]] = e.device_time_total / 1e3
+            other[e.name[:60]] = other.get(e.name[:60], 0.0) + ms
         else:
-            split[fam] += e.device_time_total / 1e3
+            split[fam] += ms
     split["other"] = sum(other.values())
     device_ms = sum(split.values())
     top = dict(sorted(other.items(), key=lambda kv: -kv[1])[:5])
     print(f"[trace] {arch} warm prefill: wall {wall_ms:.1f} ms, device busy "
           f"{device_ms:.1f} ms ({100 * device_ms / wall_ms:.0f} %): "
           + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
-          + " ms; largest other: " + ", ".join(f"{k} {v:.2f}" for k, v in top.items()))
+          + (f" ms (moe {100 * split['moe'] / device_ms:.0f} % of busy, {len(spans)} spans)"
+             if spans else " ms")
+          + "; largest other: " + ", ".join(f"{k} {v:.2f}" for k, v in top.items()))
     return {"wall_ms": wall_ms, "device_ms": device_ms, "by_family_ms": split,
             "other_top_ms": top}
 
@@ -559,7 +662,11 @@ def serve_run(report, arch: str, want: dict):
     """``arch`` at full width through ``launch.serve``, launch counts read
     around the run and required to equal ``want``; returns the launch
     counts and the inputs of the first conv1d, SSD and flash-attention
-    calls, captured on that run."""
+    calls, captured on that run (flash attention's also keyed by its
+    causal flag: the enc-dec's encoder calls are non-causal).  An enc-dec
+    model is served seeded standard-normal frames in place of the
+    launcher's zeros, with which every q, k and v of the encoder's first
+    layer would be zero."""
     import numpy as np
     import torch
 
@@ -574,11 +681,12 @@ def serve_run(report, arch: str, want: dict):
     from repro_torch.models import build_model
 
     cfg = get_config(arch)
+    frames = stub_batch(cfg, SERVE["batch"], np.random.default_rng(SEED), "cuda")
     argv = ["--arch", arch, "--device", "cuda", "--batch", str(SERVE["batch"]),
             "--prompt-len", str(SERVE["prompt_len"]), "--gen", str(SERVE["gen"]),
             "--seed", str(SEED)]
     captured = {}
-    real = (m2.causal_conv1d, m2.ssd, attn.flash_attention)
+    real = (m2.causal_conv1d, m2.ssd, attn.flash_attention, serve.generate)
 
     def capture_conv(x, w, b, mode="shuffle", activation=True):
         # w and b are trainable parameters: held off the autograd graph
@@ -591,13 +699,20 @@ def serve_run(report, arch: str, want: dict):
 
     def capture_flash(q, k, v, causal=True):
         captured.setdefault("flash", (q, k, v, causal))
+        captured.setdefault(("flash", causal), (q, k, v, causal))
         return real[2](q, k, v, causal=causal)
+
+    def generate_on_frames(model, batch, *args, **kwargs):
+        if cfg.family == "audio":
+            batch.update(frames)              # the launcher's batch, in place
+        return real[3](model, batch, *args, **kwargs)
 
     # warm-up: one full-width prefill outside the counted run (the first
     # use of each cuBLAS kernel loads its module), so the run is warm
     model = build_model(cfg, device="cuda")
     batch = {"tokens": torch.zeros((SERVE["batch"], SERVE["prompt_len"]),
-                                   dtype=torch.long, device="cuda")}
+                                   dtype=torch.long, device="cuda"),
+             **serve.stub_inputs(cfg, SERVE["batch"], "cuda")}
     t0 = time.perf_counter()
     model.prefill(batch)
     torch.cuda.synchronize()
@@ -608,13 +723,14 @@ def serve_run(report, arch: str, want: dict):
 
     torch.cuda.empty_cache()
     m2.causal_conv1d, m2.ssd, attn.flash_attention = capture_conv, capture_ssd, capture_flash
+    serve.generate = generate_on_frames
     for mod in (tconv, tssd, tfa, tstencil):
         mod.reset_launch_counts()
     try:
         out = serve.main(argv)
         torch.cuda.synchronize()
     finally:
-        m2.causal_conv1d, m2.ssd, attn.flash_attention = real
+        m2.causal_conv1d, m2.ssd, attn.flash_attention, serve.generate = real
     counts = {**tconv.launch_counts(), **tssd.launch_counts(), **tssd.instance_counts(),
               **tfa.launch_counts(), **tfa.instance_counts(), **tstencil.launch_counts()}
     if {k: counts.get(k) for k in want} != want or \
@@ -757,7 +873,7 @@ def layer0_ssd(ssd_kernel, args, launches, report, entries, name, phase="serve")
     bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
              "operations": flops / peak * 1e3}
     bound_by = max(bound, key=bound.get)
-    passes = kernel_times(lambda: ssd_kernel(xh, dt, A, Bm, Cm, Q))
+    passes = kernel_times(lambda: ssd_kernel(xh, dt, A, Bm, Cm, Q), f"ssd ({name})")
     if len(passes) != tssd.KERNELS_PER_CALL[instance]:
         raise RuntimeError(f"ssd ({instance}): {len(passes)} CUDA kernels per call: {passes}")
     times = cold_ms({"kernel": lambda: ssd_kernel(xh, dt, A, Bm, Cm, Q),
@@ -894,20 +1010,22 @@ def continuity(report, arch: str) -> None:
 def serving_path(arch, kernels, report, entries) -> None:
     """Phases 5-7.  The small-input check runs first and also warms the
     card (cuBLAS, the kernels' modules) before the timed full-width runs.
-    Entries other than Mamba-2's carry the arch in their name."""
+    Entries other than Mamba-2's carry the arch in their name; the
+    enc-dec's two flash entries are its first encoder (non-causal) and
+    its first decoder call."""
     import torch
 
     from repro_torch.configs import get_config
 
     cfg = get_config(arch)
     # every SSD and flash-attention call of the served run on its tensor-core
-    # instance, none on the CUDA-core one, and no launch of another kernel
+    # instance, none on the CUDA-core one, and no launch of another kernel;
+    # one prefill's launches in all, so none in the decode steps
     want = {}
     if cfg.family in ("ssm", "hybrid"):
         want = {"conv1d_shuffle_w4": cfg.n_layers, "ssd": cfg.n_layers,
                 "ssd/tensor_core": cfg.n_layers}
-    n_attn = {"dense": cfg.n_layers,
-              "hybrid": cfg.n_layers // cfg.attn_every}.get(cfg.family, 0)
+    n_attn = flash_per_forward(cfg)
     if n_attn:
         want["flash_attention"] = want["flash_attention/tensor_core"] = n_attn
     tag = "" if arch == MAMBA else f"[{arch}]"
@@ -919,8 +1037,13 @@ def serving_path(arch, kernels, report, entries) -> None:
                       "conv1d_shuffle" + tag)
     if "ssd" in captured:
         layer0_ssd(kernels["ssd"], captured.pop("ssd"), launches, rec, entries, "ssd" + tag)
-    if "flash" in captured:
+    if cfg.family == "audio":
+        for causal, part in ((False, "encoder"), (True, "decoder")):
+            layer0_flash(kernels["flash"], captured.pop(("flash", causal)), launches,
+                         rec.setdefault(part, {}), entries, f"{arch} {part}")
+    elif "flash" in captured:
         layer0_flash(kernels["flash"], captured.pop("flash"), launches, rec, entries, arch)
+    captured.clear()
     torch.cuda.empty_cache()
     if arch in CONTINUITY_ARCHS:
         continuity(rec, arch)
@@ -934,22 +1057,17 @@ def reduced_train_card_vs_cpu(report, arch: str) -> None:
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config, reduced
     from repro_torch.kernels import conv1d as tconv
     from repro_torch.kernels import flash_attention as tfa
     from repro_torch.kernels import ssd as tssd
-    from repro_torch.models import build_model
     from repro_torch.train import OptConfig, init_opt_state, make_train_step
     from repro_torch.train.optim import first_step_bound
 
-    rcfg = reduced(get_config(arch))
-    if rcfg.family == "hybrid":
-        rcfg = rcfg.replace(n_layers=5)
-    cpu = build_model(rcfg, device="cpu", generator=torch.Generator().manual_seed(SEED))
-    gpu = build_model(rcfg.replace(remat="block"), device="cuda")
-    gpu.load_state_dict(cpu.state_dict())
-    toks = torch.from_numpy(np.random.default_rng(SEED).integers(0, rcfg.vocab, (4, 48)))
-    batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+    rcfg, cpu, gpu = reduced_pair(arch, remat="block")
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, rcfg.vocab, (4, 48)))
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1),
+             **stub_batch(rcfg, 4, rng, "cpu")}
     grads, counts = {}, {}
     for side, m in (("cpu", cpu), ("card", gpu)):
         for mod in (tconv, tssd, tfa):
@@ -966,8 +1084,8 @@ def reduced_train_card_vs_cpu(report, arch: str) -> None:
         raise RuntimeError(f"reduced {arch}: gradients card vs CPU differ by {gerr:.2e} "
                            f"of their leaves' largest")
     if rcfg.family != "hybrid":     # forward + recompute per block
-        want = ({"flash_attention": 2 * rcfg.n_layers} if rcfg.family == "dense" else
-                {"conv1d_shuffle_w4": 2 * rcfg.n_layers, "ssd": 2 * rcfg.n_layers})
+        want = ({"conv1d_shuffle_w4": 2 * rcfg.n_layers, "ssd": 2 * rcfg.n_layers}
+                if rcfg.family == "ssm" else {"flash_attention": 2 * flash_per_forward(rcfg)})
         if counts["card"] != want:
             raise RuntimeError(f"reduced {arch}: launches per loss + gradient "
                                f"{counts['card']}, expected {want}")
@@ -1090,7 +1208,7 @@ def train_split(model, step, state, batch, arch: str):
     Returns the split, the state and the launches of the traced step."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import record_function
 
     from repro_torch.kernels import conv1d as tconv
     from repro_torch.kernels import flash_attention as tfa
@@ -1104,21 +1222,21 @@ def train_split(model, step, state, batch, arch: str):
     state, _ = step(state, batch)
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
-    for mod in (tconv, tssd, tfa):
-        mod.reset_launch_counts()
     real_backward = PlainGrad.backward
 
     def traced_backward(ctx, *cotangents):
         with record_function("smoke::plain_backward"):
             return real_backward(ctx, *cotangents)
 
+    def traced_step():
+        nonlocal state
+        for mod in (tconv, tssd, tfa):
+            mod.reset_launch_counts()
+        state, _ = step(state, batch)
+
     PlainGrad.backward = staticmethod(traced_backward)
     try:
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore", UserWarning)
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                state, _ = step(state, batch)
-                torch.cuda.synchronize()
+        events = traced(traced_step, f"{arch} train step")
     finally:
         PlainGrad.backward = staticmethod(real_backward)
     launches = {k: n for k, n in {**tconv.launch_counts(), **tssd.launch_counts(),
@@ -1126,7 +1244,7 @@ def train_split(model, step, state, batch, arch: str):
                                   **tfa.instance_counts()}.items() if n}
     ranges = {"smoke::plain_backward": "plain_backward", "smoke::adamw_update": "optimizer"}
     spans, kernels = [], []
-    for e in prof.events():
+    for e in events:
         if e.device_type != DeviceType.CUDA:
             continue
         if e.name in ranges:
@@ -1262,13 +1380,14 @@ def training_run(report, arch: str, kernels, entries) -> None:
     from repro_torch.kernels import ssd as tssd
     from repro_torch.kernels import stencil as tstencil
     from repro_torch.launch import train as ttrain
+    from repro_torch.launch.serve import stub_inputs
     from repro_torch.train import OptConfig, init_opt_state, make_train_step
 
     cfg = get_config(arch)
-    L = cfg.n_layers
+    L, n_attn = cfg.n_layers, flash_per_forward(cfg)
     per_step = ({"conv1d_shuffle_w4": 2 * L, "ssd": 2 * L, "ssd/tensor_core": 2 * L}
                 if cfg.family == "ssm" else
-                {"flash_attention": 2 * L, "flash_attention/tensor_core": 2 * L})
+                {"flash_attention": 2 * n_attn, "flash_attention/tensor_core": 2 * n_attn})
     rec = report.setdefault("training", {}).setdefault(arch, {})
     captured, first = {}, {}
     real = (m2.causal_conv1d, m2.ssd, attn.flash_attention, tstep.adamw_update)
@@ -1289,6 +1408,11 @@ def training_run(report, arch: str, kernels, entries) -> None:
         if "grads" not in first:
             first["grads"] = {k: (bool(torch.isfinite(g).all()), float(g.abs().max()))
                               for k, g in grads.items()}
+            # experts no token chose: their slices of the stacked expert
+            # weights get no gradient
+            first["idle_experts"] = sum(
+                int((g.flatten(1).abs().amax(1) == 0).sum()) for k, g in grads.items()
+                if k.endswith(".moe.w_gate"))
         with torch.profiler.record_function("smoke::adamw_update"):
             return real[3](cfg_, grads, state, params, ndims)
 
@@ -1324,6 +1448,10 @@ def training_run(report, arch: str, kernels, entries) -> None:
               f"{TRAIN['seq']} tokens: step {out['step_ms']:.1f} ms (median after the "
               f"first), {rec['tokens_per_s']:.0f} tokens/s, peak {out['peak_gib']:.2f} GiB; "
               f"losses " + " ".join(f"{x:.4f}" for x in losses))
+        if cfg.n_experts:
+            rec["idle_experts_step1"] = first["idle_experts"]
+            print(f"[train] {arch}: experts that no token chose at step 1 (a zero "
+                  f"gradient slice): {first['idle_experts']} of {L * cfg.n_experts}")
         print(f"[train] {arch}: at step 1 all {len(first['grads'])} parameters have a "
               f"finite gradient, none zero everywhere; launches per step "
               + " ".join(f"{k} {n}" for k, n in per_step.items())
@@ -1334,6 +1462,7 @@ def training_run(report, arch: str, kernels, entries) -> None:
         pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN["seq"],
                                         global_batch=TRAIN["batch"]))
         batch = {k: torch.from_numpy(v).long().cuda() for k, v in pipe.batch_at(0).items()}
+        batch.update(stub_inputs(cfg, TRAIN["batch"], "cuda"))
         state = init_opt_state(dict(model.named_parameters()))
         step = make_train_step(model, OptConfig(lr=TRAIN["lr"], warmup_steps=5,
                                                 total_steps=TRAIN["steps"]))
@@ -1362,8 +1491,9 @@ def training_run(report, arch: str, kernels, entries) -> None:
 
 def training_path(kernels, report, entries) -> None:
     """Phase 8: the reduced models' train step card vs CPU, the reduced loss
-    falling over 40 steps, a checkpoint round trip, then olmo-1b and
-    mamba2-1.3b trained at full width, one after the other."""
+    falling over 40 steps, a checkpoint round trip, then olmo-1b,
+    mamba2-1.3b and granite-moe-1b-a400m trained at full width, one after
+    the other."""
     import torch
 
     rec = report.setdefault("training", {})
@@ -1633,17 +1763,18 @@ def main() -> int:
         report["paper"][name] = rec
         del xs
 
-    # -- 5-7. the serving paths at full width: mamba2-1.3b, zamba2-1.2b, then
-    #         the dense olmo-1b and yi-9b; starcoder2-3b reduced only ---------
+    # -- 5-7. the serving paths at full width: mamba2-1.3b, zamba2-1.2b, the
+    #         dense olmo-1b and yi-9b, the MoE granite and the enc-dec
+    #         seamless; starcoder2-3b, kimi-k2 and llama-vision reduced only --
     serving_kernels = {"conv": conv, "ssd": ssd_kernel, "flash": fa_kernel}
-    for arch in (MAMBA, HYBRID, *DENSE):
+    for arch in (MAMBA, HYBRID, *DENSE, MOE, ENCDEC):
         torch.cuda.empty_cache()
         serving_path(arch, serving_kernels, report, entries)
     for arch in REDUCED_ONLY:
         reduced_card_vs_cpu(report["serving"].setdefault(arch, {}), arch)
 
     # -- 8. training: reduced card vs CPU, the loss falling, a checkpoint
-    #       round trip; olmo-1b and mamba2-1.3b at full width ----------------
+    #       round trip; olmo-1b, mamba2-1.3b and granite at full width -------
     torch.cuda.empty_cache()
     training_path(serving_kernels, report, entries)
 

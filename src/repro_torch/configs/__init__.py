@@ -1,17 +1,23 @@
 from .base import (  # noqa: F401
+    SHAPES,
     ModelConfig,
+    ShapeSpec,
     all_configs,
     get_config,
     reduced,
     register,
 )
 
-# side-effect registration of every architecture whose path is ported
+# side-effect registration of every architecture
 from . import yi_9b  # noqa: F401
 from . import olmo_1b  # noqa: F401
 from . import starcoder2_3b  # noqa: F401
 from . import deepseek_67b  # noqa: F401
 from . import mamba2_1_3b  # noqa: F401
 from . import zamba2_1_2b  # noqa: F401
+from . import granite_moe_1b_a400m  # noqa: F401
+from . import kimi_k2_1t_a32b  # noqa: F401
+from . import seamless_m4t_large_v2  # noqa: F401
+from . import llama_3_2_vision_90b  # noqa: F401
 
 ARCHS = sorted(all_configs())

@@ -2,8 +2,8 @@
 
 Each architecture file registers one :class:`ModelConfig` with the exact
 published hyperparameters; ``reduced()`` derives the small same-family
-config used by CPU tests.  Only the architectures whose path the port
-runs are registered (``configs/__init__.py``).
+config used by CPU tests; ``SHAPES`` are the reference's dry-run input
+shapes, which ``models.accounting.model_flops`` takes.
 """
 
 from __future__ import annotations
@@ -118,3 +118,23 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     if cfg.n_encoder_layers:
         kw.update(n_encoder_layers=2)
     return cfg.replace(**kw)
+
+
+# --------------------------------------------------------------------------
+# input shapes of the reference's dry-run cells (4 shapes x 10 archs)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str            # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524288, 1),
+}

@@ -4,12 +4,11 @@
 with ``repro.core.frontend.stencil`` as this package's ``Program``, by
 walking its dataclass fields and class names, so nothing of ``repro`` is
 imported.  :func:`arrays_from_numpy` keeps the reference's layout, with
-``i`` as the last axis.  :func:`dense_params_from_reference`,
-:func:`ssm_params_from_reference` and :func:`hybrid_params_from_reference`
-turn the reference's initialized ``Model``, ``SSMModel`` and
-``HybridModel`` parameters into this package's ``state_dict``
-(:func:`params_from_reference` picks one by family), and
-:func:`reference_tree` goes the other way.  :func:`train_state_tree` and
+``i`` as the last axis.  :func:`params_from_reference` turns the
+reference's initialized parameters of any family (``Model`` dense or
+MoE, ``VLMModel``, ``SSMModel``, ``HybridModel``, ``EncDecModel``) into
+this package's ``state_dict``, through one ``*_params_from_reference``
+per family, and :func:`reference_tree` goes the other way.  :func:`train_state_tree` and
 :func:`load_train_state` carry a whole train state, the parameters and
 the optimizer's ``OptState``, in the reference's layout: the tree the
 checkpoint store writes and both packages read.
@@ -72,13 +71,14 @@ def _tensor(x) -> torch.Tensor:
 
 
 def dense_params_from_reference(cfg, tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """The ``state_dict`` of ``repro_torch.models.Model(cfg)`` holding the
-    reference's unboxed ``Model.init`` parameters (numpy leaves; block
-    leaves stacked on a leading layer axis).  A ``nonparametric`` norm has
-    no leaves, so OLMo's ``ln1``, ``ln2`` and ``ln_f`` give no keys."""
+    """The ``state_dict`` of ``repro_torch.models.Model(cfg)`` (dense or
+    MoE) holding the reference's unboxed ``Model.init`` parameters (numpy
+    leaves; block leaves stacked on a leading layer axis).  A
+    ``nonparametric`` norm has no leaves, so OLMo's ``ln1``, ``ln2`` and
+    ``ln_f`` give no keys."""
     sd = _head_params(tree)
     for i in range(cfg.n_layers):
-        _stacked_block(sd, i, tree["blocks"], (i,))
+        _stacked_block(sd, f"blocks.{i}", tree["blocks"], (i,))
     return sd
 
 
@@ -86,10 +86,7 @@ def ssm_params_from_reference(cfg, tree: Mapping[str, Any]) -> Dict[str, torch.T
     """The ``state_dict`` of ``repro_torch.models.SSMModel(cfg)`` holding
     the reference's unboxed ``SSMModel.init`` parameters (numpy leaves;
     block leaves stacked on a leading layer axis)."""
-    sd = _head_params(tree)
-    for i in range(cfg.n_layers):
-        _stacked_block(sd, i, tree["blocks"], (i,))
-    return sd
+    return dense_params_from_reference(cfg, tree)
 
 
 def hybrid_params_from_reference(cfg, tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -103,12 +100,40 @@ def hybrid_params_from_reference(cfg, tree: Mapping[str, Any]) -> Dict[str, torc
     sd = _head_params(tree)
     for s in range(n_super):
         for j in range(ne):
-            _stacked_block(sd, s * ne + j, tree["supers"], (s, j))
+            _stacked_block(sd, f"blocks.{s * ne + j}", tree["supers"], (s, j))
     for t in range(cfg.n_layers - n_super * ne):
-        _stacked_block(sd, n_super * ne + t, tree["trail"], (t,))
-    for part, leaves in tree["shared_attn"].items():
-        for name, leaf in leaves.items():
-            sd[f"shared_attn.{part}.{name}"] = _tensor(leaf)
+        _stacked_block(sd, f"blocks.{n_super * ne + t}", tree["trail"], (t,))
+    _stacked_block(sd, "shared_attn", tree["shared_attn"], ())
+    return sd
+
+
+def vlm_params_from_reference(cfg, tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of ``repro_torch.models.VLMModel(cfg)`` holding
+    the reference's unboxed ``VLMModel.init`` parameters (numpy leaves):
+    ``super_self[s][j]`` (stacked on (supercell, block)) becomes block
+    ``s * (cross_every - 1) + j``, ``super_cross[s]`` cross block ``s``,
+    its scalar ``gate`` included."""
+    n_self = cfg.cross_every - 1
+    sd = _head_params(tree)
+    for s in range(cfg.n_layers // cfg.cross_every):
+        for j in range(n_self):
+            _stacked_block(sd, f"blocks.{s * n_self + j}", tree["super_self"], (s, j))
+        _stacked_block(sd, f"cross.{s}", tree["super_cross"], (s,))
+    return sd
+
+
+def encdec_params_from_reference(cfg, tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of ``repro_torch.models.EncDecModel(cfg)`` holding
+    the reference's unboxed ``EncDecModel.init`` parameters (numpy
+    leaves): ``enc_blocks[i]`` and ``enc_ln`` under the same names, the
+    decoder's ``dec_blocks[i]`` as ``blocks.i``."""
+    sd = _head_params(tree)
+    for i in range(cfg.n_encoder_layers):
+        _stacked_block(sd, f"enc_blocks.{i}", tree["enc_blocks"], (i,))
+    for name, leaf in tree["enc_ln"].items():
+        sd[f"enc_ln.{name}"] = _tensor(leaf)
+    for i in range(cfg.n_layers):
+        _stacked_block(sd, f"blocks.{i}", tree["dec_blocks"], (i,))
     return sd
 
 
@@ -119,18 +144,30 @@ def _head_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def _stacked_block(sd: Dict[str, torch.Tensor], i: int,
+def _stacked_block(sd: Dict[str, torch.Tensor], prefix: str,
                    stacked: Mapping[str, Any], index: tuple) -> None:
-    """Block ``i`` of the port from the stacked leaves at ``index``."""
+    """The port's block ``prefix`` from the stacked leaves at ``index``: a
+    part that is a dict of leaves gives ``prefix.part.name``, a part that
+    is a leaf (the VLM's ``gate``) ``prefix.part``."""
     for part, leaves in stacked.items():
-        for name, leaf in leaves.items():
-            sd[f"blocks.{i}.{part}.{name}"] = _tensor(leaf[index])
+        if isinstance(leaves, Mapping):
+            for name, leaf in leaves.items():
+                sd[f"{prefix}.{part}.{name}"] = _tensor(leaf[index])
+        else:
+            sd[f"{prefix}.{part}"] = _tensor(leaves[index])
 
 
-_FROM_REFERENCE = {"dense": dense_params_from_reference, "ssm": ssm_params_from_reference,
-                   "hybrid": hybrid_params_from_reference}
-_TBLOCK = ("ln1", "attn", "ln2", "mlp")
+_FROM_REFERENCE = {"dense": dense_params_from_reference, "moe": dense_params_from_reference,
+                   "ssm": ssm_params_from_reference, "hybrid": hybrid_params_from_reference,
+                   "vlm": vlm_params_from_reference, "audio": encdec_params_from_reference}
 _MBLOCK = ("ln", "mamba")
+_XBLOCK = ("ln1", "xattn", "ln2", "mlp", "gate")                     # the VLM's cross block
+_DEC_BLOCK = ("ln1", "attn", "lnx", "xattn", "ln2", "mlp")           # the enc-dec decoder's
+
+
+def _tblock(cfg) -> tuple:
+    """A transformer block's parts: the MoE ffn or the MLP."""
+    return ("ln1", "attn", "ln2", "moe" if cfg.n_experts else "mlp")
 
 
 def params_from_reference(cfg, tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -145,13 +182,19 @@ def _part(state: Mapping[str, torch.Tensor], prefix: str) -> Dict[str, torch.Ten
 
 
 def _stacked(state: Mapping[str, torch.Tensor], parts, layers: List[int],
-             lead: tuple) -> Dict[str, Dict[str, torch.Tensor]]:
-    """Each leaf of blocks ``layers`` stacked along leading axes ``lead``."""
-    out = {}
+             lead: tuple, prefix: str = "blocks") -> Dict[str, Any]:
+    """Each leaf of blocks ``prefix.i`` for i in ``layers``, stacked along
+    leading axes ``lead``; a part that is a leaf stacks as one."""
+    def stack(keys):
+        return torch.stack([state[k] for k in keys]).reshape(lead + state[keys[0]].shape)
+
+    out: Dict[str, Any] = {}
     for part in parts:
-        names = _part(state, f"blocks.{layers[0]}.{part}.")
-        out[part] = {n: torch.stack([state[f"blocks.{i}.{part}.{n}"] for i in layers])
-                     .reshape(lead + tuple(names[n].shape)) for n in names}
+        if f"{prefix}.{layers[0]}.{part}" in state:
+            out[part] = stack([f"{prefix}.{i}.{part}" for i in layers])
+            continue
+        names = _part(state, f"{prefix}.{layers[0]}.{part}.")
+        out[part] = {n: stack([f"{prefix}.{i}.{part}.{n}" for i in layers]) for n in names}
     return out
 
 
@@ -159,8 +202,9 @@ def reference_tree(cfg, state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """The reference's parameter tree of ``cfg`` from a dict keyed like the
     port's ``state_dict`` (the parameters, or an optimizer moment): nested
     dicts of tensors, block leaves stacked on a leading layer axis (the
-    hybrid's ``supers`` on (supercell, block)), empty dicts for
-    non-parametric norms.  The inverse of :func:`params_from_reference`."""
+    hybrid's ``supers`` and the VLM's ``super_self`` on (supercell,
+    block)), empty dicts for non-parametric norms.  The inverse of
+    :func:`params_from_reference`."""
     tree: Dict[str, Any] = {"embed": {"table": state["embed.table"]},
                             "ln_f": _part(state, "ln_f.")}
     L = cfg.n_layers
@@ -168,12 +212,24 @@ def reference_tree(cfg, state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
         ne = cfg.attn_every
         n_super = L // ne
         tree["supers"] = _stacked(state, _MBLOCK, list(range(n_super * ne)), (n_super, ne))
-        tree["shared_attn"] = {p: _part(state, f"shared_attn.{p}.") for p in _TBLOCK}
+        tree["shared_attn"] = {p: _part(state, f"shared_attn.{p}.") for p in _tblock(cfg)}
         if L > n_super * ne:
             tree["trail"] = _stacked(state, _MBLOCK, list(range(n_super * ne, L)),
                                      (L - n_super * ne,))
+    elif cfg.family == "vlm":
+        n_super, n_self = L // cfg.cross_every, cfg.cross_every - 1
+        tree["super_self"] = _stacked(state, _tblock(cfg), list(range(n_super * n_self)),
+                                      (n_super, n_self))
+        tree["super_cross"] = _stacked(state, _XBLOCK, list(range(n_super)), (n_super,),
+                                       prefix="cross")
+    elif cfg.family == "audio":
+        E = cfg.n_encoder_layers
+        tree["enc_blocks"] = _stacked(state, _tblock(cfg), list(range(E)), (E,),
+                                      prefix="enc_blocks")
+        tree["enc_ln"] = _part(state, "enc_ln.")
+        tree["dec_blocks"] = _stacked(state, _DEC_BLOCK, list(range(L)), (L,))
     else:
-        parts = _TBLOCK if cfg.family == "dense" else _MBLOCK
+        parts = _MBLOCK if cfg.family == "ssm" else _tblock(cfg)
         tree["blocks"] = _stacked(state, parts, list(range(L)), (L,))
     return tree
 
@@ -181,16 +237,21 @@ def reference_tree(cfg, state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
 def reference_ndims(cfg, params: Mapping[str, torch.Tensor]) -> Dict[str, int]:
     """Per parameter, the dimensions of the reference's leaf that holds it:
     its own, plus the layer axes a block's leaves are stacked on (two in
-    the hybrid's ``supers``, one elsewhere).  The reference decays every
-    leaf of two or more dimensions, so every block parameter, vectors
-    included."""
+    the hybrid's ``supers`` and the VLM's ``super_self``, one in every
+    other stack: blocks, the VLM's cross blocks, the encoder's blocks).
+    The reference decays every leaf of two or more dimensions, so every
+    block parameter, vectors included, but not the VLM's scalar gates,
+    which stack to one dimension."""
     L, ne = cfg.n_layers, cfg.attn_every
-    in_supers = (L // ne) * ne if cfg.family == "hybrid" else 0
+    in_supers = {"hybrid": (L // ne) * ne, "vlm": L}.get(cfg.family, 0)
     out = {}
     for k, p in params.items():
+        head, _, rest = k.partition(".")
         lead = 0
-        if k.startswith("blocks."):
-            lead = 2 if int(k.split(".")[1]) < in_supers else 1
+        if head == "blocks":
+            lead = 2 if int(rest.split(".")[0]) < in_supers else 1
+        elif head in ("cross", "enc_blocks"):
+            lead = 1
         out[k] = p.ndim + lead
     return out
 

@@ -1,15 +1,18 @@
 """Serving driver: batched prefill + greedy decode (mirrors
 ``src/repro/launch/serve.py``).
 
-Serves every registered arch whose family the port builds: the dense
-transformers (``olmo-1b``, ``yi-9b``, ``starcoder2-3b``,
-``deepseek-67b``), ``mamba2-1.3b`` (attention-free) and ``zamba2-1.2b``
-(hybrid: Mamba-2 blocks and one shared attention block).  Requests come
-from the synthetic ``TokenPipeline``; the weights are random, drawn on
-the device from ``--seed``.  On the card the prefill of every Mamba-2
-layer runs the CUDA conv1d and SSD kernels, and every attention layer
-(and every application of the shared attention block) the CUDA
-flash-attention kernel.
+Serves every registered arch: the dense transformers (``olmo-1b``,
+``yi-9b``, ``starcoder2-3b``, ``deepseek-67b``), the MoE
+``granite-moe-1b-a400m`` and ``kimi-k2-1t-a32b``, ``mamba2-1.3b``
+(attention-free), ``zamba2-1.2b`` (hybrid: Mamba-2 blocks and one shared
+attention block), the VLM ``llama-3.2-vision-90b`` and the enc-dec
+``seamless-m4t-large-v2``.  Requests come from the synthetic
+``TokenPipeline``; the weights are random, drawn on the device from
+``--seed``; the VLM's media and the enc-dec's frames are zeros of the
+reference's shapes (the modality frontends are stubs).  On the card the
+prefill of every Mamba-2 layer runs the CUDA conv1d and SSD kernels, and
+every self-attention layer (the encoder's too, and every application of
+the shared attention block) the CUDA flash-attention kernel.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
       --reduced --device cpu --batch 4 --prompt-len 32 --gen 16
@@ -17,6 +20,8 @@ flash-attention kernel.
       --reduced --device cpu --batch 4 --prompt-len 32 --gen 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \
       --reduced --device cpu --batch 4 --prompt-len 32 --gen 16
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch seamless-m4t-large-v2 --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \
       --batch 4 --prompt-len 1024 --gen 32          # full width, on the card
 """
@@ -32,6 +37,18 @@ from repro_torch.configs import ARCHS, get_config, reduced
 from repro_torch.data import DataConfig, TokenPipeline
 from repro_torch.models import build_model
 from repro_torch.serve import generate
+
+
+def stub_inputs(cfg, batch: int, device) -> dict:
+    """The stubbed modality inputs of a batch, as the reference's launchers
+    make them: float32 zeros, ``media`` (B, n_media_tokens, D) for a VLM
+    and ``frames`` (B, n_frames, D) for an enc-dec model."""
+    shape = {"vlm": ("media", cfg.n_media_tokens),
+             "audio": ("frames", cfg.n_frames)}.get(cfg.family)
+    if shape is None:
+        return {}
+    return {shape[0]: torch.zeros((batch, shape[1], cfg.d_model), dtype=torch.float32,
+                                  device=device)}
 
 
 def main(argv=None) -> dict:
@@ -58,7 +75,8 @@ def main(argv=None) -> dict:
 
     pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=args.prompt_len,
                                     global_batch=args.batch))
-    batch = {"tokens": torch.from_numpy(pipe.batch_at(0)["tokens"]).long().to(dev)}
+    batch = {"tokens": torch.from_numpy(pipe.batch_at(0)["tokens"]).long().to(dev),
+             **stub_inputs(cfg, args.batch, dev)}
 
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)

@@ -7,9 +7,10 @@ every ``--ckpt-every`` steps and at the end, resume from the latest one,
 and the heartbeat and straggler hooks.  The weights are drawn on the
 device from seed 0.  On the card every forward runs the port's kernels
 (flash attention per attention layer; conv1d and the SSD per Mamba-2
-layer), and the backward differentiates their plain versions.  Serves
-the dense, SSM and hybrid families; the MoE, VLM and audio families and
-any mesh other than 1x1 wait for later parts of the port.
+layer), and the backward differentiates their plain versions.  Trains
+every registered arch; the VLM's media and the enc-dec's frames are
+zeros of the reference's shapes.  Any mesh other than 1x1 waits for the
+distributed part of the port.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \\
       --reduced --device cpu --steps 20
@@ -32,6 +33,7 @@ from repro_torch.checkpoint import CheckpointStore
 from repro_torch.configs import ARCHS, get_config, reduced
 from repro_torch.data import DataConfig, TokenPipeline
 from repro_torch.interop import load_train_state, train_state_tree
+from repro_torch.launch.serve import stub_inputs
 from repro_torch.models import build_model
 from repro_torch.runtime import Heartbeat, StragglerDetector
 from repro_torch.train import OptConfig, init_opt_state, make_train_step
@@ -97,6 +99,7 @@ def main(argv=None) -> dict:
     for step in range(start_step, args.steps):
         batch = {k: torch.from_numpy(v).long().to(dev)
                  for k, v in pipe.batch_at(step).items()}
+        batch.update(stub_inputs(cfg, args.batch, dev))
         t0 = time.time()
         opt_state, metrics = step_fn(opt_state, batch)
         loss = float(metrics["loss"])             # waits for the step

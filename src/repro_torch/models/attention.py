@@ -1,6 +1,6 @@
-"""Grouped-query attention: full-sequence, prefill and decode (mirrors
-``src/repro/models/attention.py``; cross and ring attention are not
-ported yet).
+"""Grouped-query attention: full-sequence, prefill, decode and cross
+attention (mirrors ``src/repro/models/attention.py``; ring attention
+across cards is not ported yet).
 
 Where the reference calls its jnp ``blockwise_attention`` (the point at
 which a real TPU would run the Pallas flash kernel), ``self_attention``
@@ -9,8 +9,10 @@ and ``prefill_attention`` call the port's
 tensor the hand-written CUDA kernel, on a CPU tensor its plain version.
 ``blockwise_attention`` is the reference's flash-style algorithm in
 plain PyTorch, kept for parity with the JAX package; decode is plain
-PyTorch, as it is plain jnp in the reference.  The projections are
-``torch.matmul``.
+PyTorch, as it is plain jnp in the reference.  Cross attention never
+reaches the kernel, as the reference never reaches its Pallas kernel
+there: :func:`naive_attention` up to S * M = 4096^2 scores, else
+:func:`blockwise_attention`.  The projections are ``torch.matmul``.
 """
 
 from __future__ import annotations
@@ -175,3 +177,23 @@ def decode_attention(params: Params, x: torch.Tensor,
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, cv.float())
     out = out.reshape(B, 1, H, Dh).to(x.dtype)
     return _output(out, params["wo"]), (ck, cv)
+
+
+# ---------------------------------------------------------------------------
+# cross attention (VLM image layers, enc-dec decoder)
+# ---------------------------------------------------------------------------
+
+def cross_attention(params: Params, x: torch.Tensor, memory: torch.Tensor,
+                    cfg: AttnConfig) -> torch.Tensor:
+    """x: (B, S, D) queries; memory: (B, M, D).  Not causal, no rope
+    (positions encode nothing across modalities)."""
+    S, M = x.shape[1], memory.shape[1]
+    q = _project(x, params["wq"])
+    k = _project(memory, params["wk"])
+    v = _project(memory, params["wv"])
+    nc_cfg = cfg._replace(causal=False, rope_theta=0.0)
+    if S * M <= 4096 * 4096:
+        out = naive_attention(q, k, v, nc_cfg)
+    else:
+        out = blockwise_attention(q, k, v, nc_cfg)
+    return _output(out, params["wo"])

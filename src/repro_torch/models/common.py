@@ -4,7 +4,8 @@ embeddings (mirrors ``src/repro/models/common.py``).
 The reference annotates every parameter with logical axis names for its
 sharding layer; one card shards nothing, so parameters here are plain
 tensors.  Initializers draw from an explicit ``torch.Generator`` on the
-parameters' device.
+parameters' device; a build on the ``meta`` device, where no generator
+can live, passes :class:`NoDraw` instead and draws nothing.
 """
 
 from __future__ import annotations
@@ -20,17 +21,36 @@ Params = Dict[str, torch.Tensor]
 # initializers
 # ---------------------------------------------------------------------------
 
+class NoDraw:
+    """The generator of a build on the ``meta`` device: :func:`randn` and
+    :func:`rand` given it return meta tensors of the shape asked for, so
+    the parameters have their shapes and dtypes and hold no memory."""
+    device = torch.device("meta")
+
+
+def randn(gen, shape: Sequence[int]) -> torch.Tensor:
+    """Standard normal float32 draws from ``gen`` on its device."""
+    if isinstance(gen, NoDraw):
+        return torch.empty(tuple(shape), device=gen.device)
+    return torch.randn(tuple(shape), generator=gen, device=gen.device)
+
+
+def rand(gen, shape: Sequence[int]) -> torch.Tensor:
+    """Uniform [0, 1) float32 draws from ``gen`` on its device."""
+    if isinstance(gen, NoDraw):
+        return torch.empty(tuple(shape), device=gen.device)
+    return torch.rand(tuple(shape), generator=gen, device=gen.device)
+
+
 def dense_init(gen: torch.Generator, shape: Sequence[int], in_axis: int = 0,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
     std = shape[in_axis] ** -0.5
-    return (torch.randn(tuple(shape), generator=gen, device=gen.device)
-            * std).to(dtype)
+    return (randn(gen, shape) * std).to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape: Sequence[int],
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    return (torch.randn(tuple(shape), generator=gen, device=gen.device)
-            * 0.02).to(dtype)
+    return (randn(gen, shape) * 0.02).to(dtype)
 
 
 # ---------------------------------------------------------------------------

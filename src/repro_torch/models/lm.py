@@ -1,9 +1,8 @@
-"""Language-model assembly (mirrors ``src/repro/models/lm.py``; the dense,
-SSM and hybrid families so far).
+"""Language-model assembly (mirrors ``src/repro/models/lm.py``).
 
-:class:`Model` (dense), :class:`SSMModel` and :class:`HybridModel` keep
-the reference's API, with the parameters inside the module instead of a
-pytree argument:
+:class:`Model` (dense and MoE), :class:`VLMModel`, :class:`SSMModel`,
+:class:`HybridModel` and :class:`EncDecModel` keep the reference's API,
+with the parameters inside the module instead of a pytree argument:
 
   hidden(batch)                    -> (final-norm hidden states, aux)
   loss(batch)                      -> (scalar, {"ce", "aux"})
@@ -19,9 +18,11 @@ mode on, ``hidden``/``loss`` recompute each block in the backward
 blocks in ``jax.checkpoint``; the hybrid also wraps each supercell, as
 the reference does.  Cross-entropy runs over sequence chunks
 (:func:`chunked_ce_loss`), so the (B, S, vocab) logits are never held.
-``build_model(cfg, device, generator)`` is the factory; families whose
-path is not ported yet (moe, vlm, audio) raise ``NotImplementedError``.
-Entry points run on the card unless ``device="cpu"`` is asked for.
+The MoE ffn returns the router's load-balancing loss, summed over the
+layers as ``aux``; ``loss`` adds 0.01 x aux.  ``build_model(cfg, device,
+generator)`` is the factory.  Entry points run on the card unless
+``device="cpu"`` is asked for; ``device="meta"`` builds the parameters'
+shapes only, drawing nothing (``models.accounting``).
 """
 
 from __future__ import annotations
@@ -36,7 +37,8 @@ from repro_torch.configs.base import ModelConfig
 from . import attention as attn
 from . import mamba2 as m2
 from . import mlp as mlpm
-from .common import Params, apply_norm, embed_init, init_norm
+from . import moe as moem
+from .common import NoDraw, Params, apply_norm, embed_init, init_norm
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 CE_CHUNK = 512
@@ -56,7 +58,13 @@ def _device(device: str) -> torch.device:
 
 def _generator(dev: torch.device,
                generator: Optional[torch.Generator]) -> torch.Generator:
-    """``generator``, or seed 0 on ``dev`` if None."""
+    """``generator``, or seed 0 on ``dev`` if None; on the ``meta`` device,
+    where no generator can live, :class:`NoDraw`."""
+    if dev.type == "meta":
+        if generator is not None and not isinstance(generator, NoDraw):
+            raise ValueError("a build on the meta device draws nothing; "
+                             "pass no generator")
+        return NoDraw()
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     if generator.device.type != dev.type:
@@ -75,11 +83,10 @@ def _pad_kv(kv: torch.Tensor, max_len: Optional[int]) -> torch.Tensor:
     return out
 
 
-def _attn_cfg(cfg: ModelConfig) -> attn.AttnConfig:
-    """Causal self-attention of a transformer block."""
+def _attn_cfg(cfg: ModelConfig, causal: bool = True) -> attn.AttnConfig:
     return attn.AttnConfig(
         d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-        head_dim=cfg.head_dim, rope_theta=cfg.rope_theta, causal=True,
+        head_dim=cfg.head_dim, rope_theta=cfg.rope_theta, causal=causal,
         q_block=cfg.q_block, kv_block=cfg.kv_block)
 
 
@@ -132,47 +139,71 @@ class SSMBlock(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# transformer block (dense ffn)
+# transformer block (dense / moe ffn)
 # ---------------------------------------------------------------------------
+
+class Block(nn.Module):
+    """A block's named parts, each a parameter dict (a tensor part, the
+    VLM's scalar ``gate``, is one parameter), under the reference's names."""
+
+    def __init__(self, parts: Dict[str, Any]):
+        super().__init__()
+        for name, part in parts.items():
+            setattr(self, name, nn.Parameter(part) if isinstance(part, torch.Tensor)
+                    else nn.ParameterDict(part))
+
 
 def init_tblock(gen: torch.Generator, cfg: ModelConfig,
                 dtype: torch.dtype) -> Dict[str, Params]:
-    if cfg.n_experts:
-        raise NotImplementedError(f"{cfg.name}: the MoE ffn is not ported yet")
+    """``ln1``, ``attn``, ``ln2`` and ``moe`` (a MoE config) or ``mlp``."""
     dev = gen.device
-    return {"ln1": init_norm(cfg.d_model, cfg.norm, dtype, dev),
-            "attn": attn.init_attention(gen, _attn_cfg(cfg), dtype),
-            "ln2": init_norm(cfg.d_model, cfg.norm, dtype, dev),
-            "mlp": mlpm.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp, dtype)}
+    p = {"ln1": init_norm(cfg.d_model, cfg.norm, dtype, dev),
+         "attn": attn.init_attention(gen, _attn_cfg(cfg), dtype),
+         "ln2": init_norm(cfg.d_model, cfg.norm, dtype, dev)}
+    if cfg.n_experts:
+        p["moe"] = moem.init_moe(gen, cfg.d_model, cfg.d_ff, cfg.n_experts,
+                                 cfg.moe_top_k, dtype)
+    else:
+        p["mlp"] = mlpm.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp, dtype)
+    return p
 
 
-class TBlock(nn.Module):
-    """Pre-norm attention + MLP block; its parameter dicts carry the
-    reference's names (``ln1``, ``attn``, ``ln2``, ``mlp``)."""
+class TBlock(Block):
+    """Pre-norm attention + MLP (or MoE) block."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator, dtype: torch.dtype):
-        super().__init__()
-        for name, params in init_tblock(gen, cfg, dtype).items():
-            setattr(self, name, nn.ParameterDict(params))
+        super().__init__(init_tblock(gen, cfg, dtype))
+
+
+def _apply_ffn(p: Block, x: torch.Tensor, cfg: ModelConfig):
+    """(y, aux): the MoE's dense dispatch and its load-balancing loss, or
+    the MLP and None.  ``moe_impl="sharded"`` also runs the dense
+    dispatch: the reference does so without a mesh, and one card has
+    none."""
+    if cfg.n_experts:
+        return moem.apply_moe_dense(p.moe, x, cfg.moe_top_k, cfg.n_experts)
+    return mlpm.apply_mlp(p.mlp, x, cfg.mlp), None
 
 
 def apply_tblock(p: TBlock, x: torch.Tensor, cfg: ModelConfig):
-    """x: (B, S, D) -> (x', aux), the full-sequence block; aux, the MoE
-    load-balancing loss, is 0 for the dense ffn."""
+    """x: (B, S, D) -> (x', aux), the full-sequence block; aux is a float32
+    0 for the MLP."""
     h = apply_norm(p.ln1, x, cfg.norm, impl=cfg.norm_impl)
     x = x + attn.self_attention(p.attn, h, _attn_cfg(cfg), impl=cfg.attn_impl)
     h = apply_norm(p.ln2, x, cfg.norm, impl=cfg.norm_impl)
-    return (x + mlpm.apply_mlp(p.mlp, h, cfg.mlp),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+    y, aux = _apply_ffn(p, h, cfg)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + y, aux
 
 
 def prefill_tblock(p: TBlock, x: torch.Tensor, cfg: ModelConfig):
-    """x: (B, S, D) -> (x', (k, v))."""
+    """x: (B, S, D) -> (x', (k, v)); the MoE's aux is dropped."""
     h = apply_norm(p.ln1, x, cfg.norm, impl=cfg.norm_impl)
     a, kv = attn.prefill_attention(p.attn, h, _attn_cfg(cfg), impl=cfg.attn_impl)
     x = x + a
     h = apply_norm(p.ln2, x, cfg.norm, impl=cfg.norm_impl)
-    return x + mlpm.apply_mlp(p.mlp, h, cfg.mlp), kv
+    return x + _apply_ffn(p, h, cfg)[0], kv
 
 
 def decode_tblock(p: TBlock, x: torch.Tensor, kv_cache, pos: torch.Tensor,
@@ -182,7 +213,7 @@ def decode_tblock(p: TBlock, x: torch.Tensor, kv_cache, pos: torch.Tensor,
     a, kv_cache = attn.decode_attention(p.attn, h, kv_cache, pos, _attn_cfg(cfg))
     x = x + a
     h = apply_norm(p.ln2, x, cfg.norm, impl=cfg.norm_impl)
-    return x + mlpm.apply_mlp(p.mlp, h, cfg.mlp), kv_cache
+    return x + _apply_ffn(p, h, cfg)[0], kv_cache
 
 
 # ---------------------------------------------------------------------------
@@ -190,12 +221,12 @@ def decode_tblock(p: TBlock, x: torch.Tensor, kv_cache, pos: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 class Model(nn.Module):
-    """Embedding, a stack of transformer blocks and a final norm; the
-    unembedding is the (row-padded) embedding table, in float32, whatever
-    ``tie_embeddings`` says, as in the reference.  The weights are drawn
-    from ``generator`` (seed 0 on ``device`` if None).  On the card every
-    attention prefill runs the CUDA flash-attention kernel once per
-    layer."""
+    """Embedding, a stack of transformer blocks (dense or MoE ffn) and a
+    final norm; the unembedding is the (row-padded) embedding table, in
+    float32, whatever ``tie_embeddings`` says, as in the reference.  The
+    weights are drawn from ``generator`` (seed 0 on ``device`` if None).
+    On the card every attention prefill runs the CUDA flash-attention
+    kernel once per layer."""
 
     def __init__(self, cfg: ModelConfig, device: str = "cuda",
                  generator: Optional[torch.Generator] = None):
@@ -207,11 +238,14 @@ class Model(nn.Module):
         self.embed = nn.ParameterDict({"table": embed_init(
             generator, (cfg.padded_vocab, cfg.d_model), self.dtype)})
         self.blocks = nn.ModuleList([self._block(generator)
-                                     for _ in range(cfg.n_layers)])
+                                     for _ in range(self._n_blocks())])
         self.ln_f = nn.ParameterDict(init_norm(cfg.d_model, cfg.norm, self.dtype, dev))
 
     def _block(self, gen: torch.Generator) -> nn.Module:
         return TBlock(self.cfg, gen, self.dtype)
+
+    def _n_blocks(self) -> int:
+        return self.cfg.n_layers
 
     @property
     def device(self) -> torch.device:
@@ -235,7 +269,9 @@ class Model(nn.Module):
             return checkpoint(fn, *args, use_reentrant=False)
         return fn(*args)
 
-    def _backbone(self, x: torch.Tensor):
+    def _backbone(self, x: torch.Tensor, batch: Dict[str, torch.Tensor]):
+        """The blocks over the embedded tokens -> (x, aux summed over the
+        layers)."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for blk in self.blocks:
             x, a = self._remat(apply_tblock, blk, x, self.cfg)
@@ -243,9 +279,11 @@ class Model(nn.Module):
         return x, aux
 
     def hidden(self, batch: Dict[str, torch.Tensor]):
-        """batch["tokens"]: (B, S) -> (final-norm hidden (B, S, D), aux)."""
+        """batch["tokens"]: (B, S), plus ``media`` (vlm) or ``frames``
+        (audio) -> (final-norm hidden (B, S, D), aux)."""
         cfg = self.cfg
-        x, aux = self._backbone(self.embed["table"][batch["tokens"].to(self.device)])
+        x, aux = self._backbone(self.embed["table"][batch["tokens"].to(self.device)],
+                                batch)
         return apply_norm(self.ln_f, x, cfg.norm, impl=cfg.norm_impl), aux
 
     def loss(self, batch: Dict[str, torch.Tensor]):
@@ -293,6 +331,127 @@ class Model(nn.Module):
 
 
 # ---------------------------------------------------------------------------
+# VLM: self layers + periodic cross-attention layers
+# ---------------------------------------------------------------------------
+
+def init_xblock(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
+                self_attn: bool) -> Dict[str, Any]:
+    """A block with cross attention over a memory (``xattn``): the VLM's
+    tanh-gated cross block (``ln1``, ``xattn``, ``ln2``, ``mlp``, the scalar
+    ``gate``, 0 at init) or, with ``self_attn``, the enc-dec decoder's
+    block (``ln1``, causal ``attn``, ``lnx``, ``xattn``, ``ln2``, ``mlp``)."""
+    dev, d = gen.device, cfg.d_model
+    p: Dict[str, Any] = {"ln1": init_norm(d, cfg.norm, dtype, dev)}
+    if self_attn:
+        p["attn"] = attn.init_attention(gen, _attn_cfg(cfg), dtype)
+        p["lnx"] = init_norm(d, cfg.norm, dtype, dev)
+    p["xattn"] = attn.init_attention(gen, _attn_cfg(cfg, causal=False), dtype)
+    p["ln2"] = init_norm(d, cfg.norm, dtype, dev)
+    p["mlp"] = mlpm.init_mlp(gen, d, cfg.d_ff, cfg.mlp, dtype)
+    if not self_attn:
+        p["gate"] = torch.zeros((), dtype=dtype, device=dev)
+    return p
+
+
+class VLMModel(Model):
+    """Supercells of ``cross_every - 1`` self blocks and one tanh-gated
+    cross block over the media tokens (Llama-3.2-Vision's layout).
+    ``blocks[s * n_self + j]`` is self block j of supercell s and
+    ``cross[s]`` its cross block.  Under remat the self blocks are
+    recomputed, the cross blocks not, as in the reference.  The cache
+    holds the self blocks' k/v per (supercell, block) and the media."""
+
+    def __init__(self, cfg: ModelConfig, device: str = "cuda",
+                 generator: Optional[torch.Generator] = None):
+        if cfg.cross_every < 2 or cfg.n_layers % cfg.cross_every:
+            raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not make "
+                             f"supercells of cross_every={cfg.cross_every}")
+        generator = _generator(_device(device), generator)
+        super().__init__(cfg, device=device, generator=generator)
+        self.cross = nn.ModuleList([Block(init_xblock(generator, cfg, self.dtype, False))
+                                    for _ in range(self.n_super)])
+
+    @property
+    def n_super(self) -> int:
+        return self.cfg.n_layers // self.cfg.cross_every
+
+    @property
+    def n_self(self) -> int:
+        return self.cfg.cross_every - 1
+
+    def _n_blocks(self) -> int:
+        return self.n_super * self.n_self
+
+    def _apply_cross(self, cp: Block, x: torch.Tensor,
+                     media: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        h = apply_norm(cp.ln1, x, cfg.norm, impl=cfg.norm_impl)
+        x = x + torch.tanh(cp.gate) * attn.cross_attention(
+            cp.xattn, h, media, _attn_cfg(cfg, causal=False))
+        h = apply_norm(cp.ln2, x, cfg.norm, impl=cfg.norm_impl)
+        return x + mlpm.apply_mlp(cp.mlp, h, cfg.mlp)
+
+    def _backbone(self, x: torch.Tensor, batch: Dict[str, torch.Tensor]):
+        media = batch["media"].to(self.device, self.dtype)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for s in range(self.n_super):
+            for j in range(self.n_self):
+                x, a = self._remat(apply_tblock, self.blocks[s * self.n_self + j],
+                                   x, self.cfg)
+                aux = aux + a
+            x = self._apply_cross(self.cross[s], x, media)
+        return x, aux
+
+    def init_cache(self, batch_size: int, seq_len: int) -> Dict[str, Any]:
+        cfg = self.cfg
+        shape = (self.n_super, self.n_self, batch_size, seq_len, cfg.n_kv_heads,
+                 cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=self.dtype, device=self.device),
+                "v": torch.zeros(shape, dtype=self.dtype, device=self.device),
+                "media": torch.zeros((batch_size, cfg.n_media_tokens, cfg.d_model),
+                                     dtype=self.dtype, device=self.device),
+                "pos": torch.zeros(batch_size, dtype=torch.int32, device=self.device)}
+
+    @torch.inference_mode()
+    def prefill(self, batch: Dict[str, torch.Tensor],
+                max_len: Optional[int] = None):
+        """batch["tokens"]: (B, S), batch["media"]: (B, M, D) -> (last logits
+        (B, vocab), cache); the k/v caches (n_super, n_self, B, S, KV, Dh)
+        are zero-padded along S to ``max_len``."""
+        tokens = batch["tokens"].to(self.device)
+        media = batch["media"].to(self.device, self.dtype)
+        x = self.embed["table"][tokens]
+        ks, vs = [], []
+        for s in range(self.n_super):
+            for j in range(self.n_self):
+                x, (k, v) = prefill_tblock(self.blocks[s * self.n_self + j], x, self.cfg)
+                ks.append(k)
+                vs.append(v)
+            x = self._apply_cross(self.cross[s], x, media)
+        lead = (self.n_super, self.n_self)
+        B, S = tokens.shape
+        return self._final(x[:, -1]), {
+            "k": _pad_kv(torch.stack(ks).reshape(lead + ks[0].shape), max_len),
+            "v": _pad_kv(torch.stack(vs).reshape(lead + vs[0].shape), max_len),
+            "media": media,
+            "pos": torch.full((B,), S, dtype=torch.int32, device=self.device)}
+
+    @torch.inference_mode()
+    def decode_step(self, tokens: torch.Tensor, cache):
+        """tokens: (B,) -> (logits (B, vocab), new cache); the k/v caches are
+        written at ``pos`` in place."""
+        x = self.embed["table"][tokens.to(self.device)][:, None]     # (B, 1, D)
+        pos = cache["pos"]
+        for s in range(self.n_super):
+            for j in range(self.n_self):
+                x, _ = decode_tblock(self.blocks[s * self.n_self + j], x,
+                                     (cache["k"][s, j], cache["v"][s, j]), pos, self.cfg)
+            x = self._apply_cross(self.cross[s], x, cache["media"])
+        return self._final(x[:, 0]), {"k": cache["k"], "v": cache["v"],
+                                      "media": cache["media"], "pos": pos + 1}
+
+
+# ---------------------------------------------------------------------------
 # SSM (mamba2) model
 # ---------------------------------------------------------------------------
 
@@ -314,7 +473,7 @@ class SSMModel(Model):
         cfg, blk = self.cfg, self.blocks[i]
         return x + blk.mamba(apply_norm(blk.ln, x, cfg.norm, impl=cfg.norm_impl))
 
-    def _backbone(self, x: torch.Tensor):
+    def _backbone(self, x: torch.Tensor, batch: Dict[str, torch.Tensor]):
         for i in range(self.cfg.n_layers):
             x = self._remat(self._mamba, i, x)
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
@@ -410,7 +569,7 @@ class HybridModel(SSMModel):
             x = self._remat(self._mamba, s * ne + j, x)
         return x
 
-    def _backbone(self, x: torch.Tensor):
+    def _backbone(self, x: torch.Tensor, batch: Dict[str, torch.Tensor]):
         for s in range(self.n_super):
             x = self._remat(self._supercell, s, x)
         for t in range(self.n_trail):
@@ -462,13 +621,123 @@ class HybridModel(SSMModel):
                                 "pos": pos + 1}
 
 
-_FAMILIES = {"dense": Model, "ssm": SSMModel, "hybrid": HybridModel}
+# ---------------------------------------------------------------------------
+# encoder-decoder (seamless): stubbed frame embeddings -> text decoder
+# ---------------------------------------------------------------------------
+
+class EncDecModel(Model):
+    """An encoder of ``n_encoder_layers`` blocks with non-causal
+    self-attention over the frame embeddings (the speech frontend is a
+    stub: ``batch["frames"]`` (B, F, D)), then ``n_layers`` decoder blocks
+    with causal self-attention and cross attention to the encoder's
+    output.  ``blocks`` are the decoder's, ``enc_blocks`` and ``enc_ln``
+    the encoder's.  On the card each prefill runs the flash-attention
+    kernel once per encoder layer (non-causal) and once per decoder layer;
+    decode steps reuse the cached memory and run the encoder no more.
+    Under remat every encoder and decoder block is recomputed."""
+
+    def __init__(self, cfg: ModelConfig, device: str = "cuda",
+                 generator: Optional[torch.Generator] = None):
+        generator = _generator(_device(device), generator)
+        super().__init__(cfg, device=device, generator=generator)
+        self.enc_blocks = nn.ModuleList([
+            Block(init_tblock(generator, cfg, self.dtype))
+            for _ in range(cfg.n_encoder_layers)])
+        self.enc_ln = nn.ParameterDict(init_norm(cfg.d_model, cfg.norm, self.dtype,
+                                                 generator.device))
+
+    def _block(self, gen: torch.Generator) -> nn.Module:
+        return Block(init_xblock(gen, self.cfg, self.dtype, True))
+
+    def _enc_block(self, blk: Block, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        h = apply_norm(blk.ln1, x, cfg.norm, impl=cfg.norm_impl)
+        x = x + attn.self_attention(blk.attn, h, _attn_cfg(cfg, causal=False),
+                                    impl=cfg.attn_impl)
+        h = apply_norm(blk.ln2, x, cfg.norm, impl=cfg.norm_impl)
+        return x + mlpm.apply_mlp(blk.mlp, h, cfg.mlp)
+
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """frames: (B, F, D) stubbed speech embeddings -> memory (B, F, D)."""
+        cfg = self.cfg
+        x = frames.to(self.device, self.dtype)
+        for blk in self.enc_blocks:
+            x = self._remat(self._enc_block, blk, x)
+        return apply_norm(self.enc_ln, x, cfg.norm, impl=cfg.norm_impl)
+
+    def _cross_mlp(self, blk: Block, x: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
+        """A decoder block's cross attention and MLP."""
+        cfg = self.cfg
+        h = apply_norm(blk.lnx, x, cfg.norm, impl=cfg.norm_impl)
+        x = x + attn.cross_attention(blk.xattn, h, memory, _attn_cfg(cfg, causal=False))
+        h = apply_norm(blk.ln2, x, cfg.norm, impl=cfg.norm_impl)
+        return x + mlpm.apply_mlp(blk.mlp, h, cfg.mlp)
+
+    def _dec_block(self, blk: Block, x: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        h = apply_norm(blk.ln1, x, cfg.norm, impl=cfg.norm_impl)
+        x = x + attn.self_attention(blk.attn, h, _attn_cfg(cfg), impl=cfg.attn_impl)
+        return self._cross_mlp(blk, x, memory)
+
+    def _backbone(self, x: torch.Tensor, batch: Dict[str, torch.Tensor]):
+        memory = self.encode(batch["frames"])
+        for blk in self.blocks:
+            x = self._remat(self._dec_block, blk, x, memory)
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def init_cache(self, batch_size: int, seq_len: int) -> Dict[str, Any]:
+        cache = super().init_cache(batch_size, seq_len)
+        cache["memory"] = torch.zeros((batch_size, self.cfg.n_frames, self.cfg.d_model),
+                                      dtype=self.dtype, device=self.device)
+        return cache
+
+    @torch.inference_mode()
+    def prefill(self, batch: Dict[str, torch.Tensor],
+                max_len: Optional[int] = None):
+        """batch["tokens"]: (B, S), batch["frames"]: (B, F, D) -> (last
+        logits (B, vocab), cache); the k/v caches (L, B, S, KV, Dh) are
+        zero-padded along S to ``max_len``; the cache keeps the memory."""
+        cfg = self.cfg
+        tokens = batch["tokens"].to(self.device)
+        memory = self.encode(batch["frames"])
+        x = self.embed["table"][tokens]
+        ks, vs = [], []
+        for blk in self.blocks:
+            h = apply_norm(blk.ln1, x, cfg.norm, impl=cfg.norm_impl)
+            a, (k, v) = attn.prefill_attention(blk.attn, h, _attn_cfg(cfg),
+                                               impl=cfg.attn_impl)
+            x = self._cross_mlp(blk, x + a, memory)
+            ks.append(k)
+            vs.append(v)
+        B, S = tokens.shape
+        return self._final(x[:, -1]), {
+            "k": _pad_kv(torch.stack(ks), max_len), "v": _pad_kv(torch.stack(vs), max_len),
+            "memory": memory,
+            "pos": torch.full((B,), S, dtype=torch.int32, device=self.device)}
+
+    @torch.inference_mode()
+    def decode_step(self, tokens: torch.Tensor, cache):
+        """tokens: (B,) -> (logits (B, vocab), new cache); the k/v caches are
+        written at ``pos`` in place; the encoder does not run."""
+        cfg = self.cfg
+        x = self.embed["table"][tokens.to(self.device)][:, None]     # (B, 1, D)
+        pos, memory = cache["pos"], cache["memory"]
+        for i, blk in enumerate(self.blocks):
+            h = apply_norm(blk.ln1, x, cfg.norm, impl=cfg.norm_impl)
+            a, _ = attn.decode_attention(blk.attn, h, (cache["k"][i], cache["v"][i]),
+                                         pos, _attn_cfg(cfg))
+            x = self._cross_mlp(blk, x + a, memory)
+        return self._final(x[:, 0]), {"k": cache["k"], "v": cache["v"],
+                                      "memory": memory, "pos": pos + 1}
+
+
+_FAMILIES = {"dense": Model, "moe": Model, "vlm": VLMModel, "ssm": SSMModel,
+             "hybrid": HybridModel, "audio": EncDecModel}
 
 
 def build_model(cfg: ModelConfig, device: str = "cuda",
                 generator: Optional[torch.Generator] = None) -> nn.Module:
     if cfg.family not in _FAMILIES:
-        raise NotImplementedError(f"model family {cfg.family!r} ({cfg.name}) is "
-                                  f"not ported yet; the port serves: "
-                                  f"{', '.join(_FAMILIES)}")
+        raise ValueError(f"unknown model family {cfg.family!r} ({cfg.name}); "
+                         f"have {', '.join(_FAMILIES)}")
     return _FAMILIES[cfg.family](cfg, device=device, generator=generator)

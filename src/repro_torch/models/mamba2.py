@@ -28,7 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.conv1d import causal_conv1d
 from repro_torch.kernels.ssd import ssd
-from .common import Params, dense_init, rmsnorm
+from .common import Params, dense_init, rand, rmsnorm
 
 
 class SSMConfig(NamedTuple):
@@ -63,7 +63,7 @@ def init_mamba2(gen: torch.Generator, cfg: SSMConfig,
     H = cfg.n_heads
     dev = gen.device
     d_in_proj = 2 * di + 2 * ng * ns + H     # z, x, B, C, dt
-    dt = torch.exp(torch.rand(H, generator=gen, device=dev)
+    dt = torch.exp(rand(gen, (H,))
                    * (math.log(cfg.dt_max) - math.log(cfg.dt_min))
                    + math.log(cfg.dt_min))
     dt_bias = dt + torch.log(-torch.expm1(-dt))   # inverse softplus

@@ -366,14 +366,16 @@ def test_mamba2_prefill_on_card_matches_plain(card):
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 6e-2}    # the reference's
 # (B, Sq, Sk, H, KV, Dh, causal): the reference test's five shapes, Sq
 # above a ragged Sk, GQA with Dh 128, ragged Sq and Sk at Dh 64 and (GQA)
-# 128, and the serving shapes of Zamba2, OLMo-1B and Yi-9B
+# 128, and the serving shapes of Zamba2, OLMo-1B, Yi-9B, Granite (GQA
+# 16/8 at Dh 64) and the Seamless encoder (non-causal)
 FLASH_SHAPES = [(2, 64, 64, 4, 2, 16, True), (1, 100, 100, 4, 4, 8, True),
                 (2, 64, 64, 8, 2, 16, False), (1, 33, 33, 2, 1, 32, True),
                 (2, 48, 96, 4, 1, 16, True), (1, 40, 20, 2, 1, 8, True),
                 (2, 200, 200, 8, 2, 128, True), (1, 300, 177, 4, 2, 64, True),
                 (2, 130, 250, 8, 2, 128, True), (1, 70, 128, 4, 1, 64, False),
                 (4, 1024, 1024, 32, 32, 64, True), (4, 1024, 1024, 16, 16, 128, True),
-                (4, 1024, 1024, 32, 4, 128, True)]
+                (4, 1024, 1024, 32, 4, 128, True), (4, 1024, 1024, 16, 8, 64, True),
+                (4, 1024, 1024, 16, 16, 64, False)]
 
 
 def _flash_rounded(out, q, k, v, causal=True):
@@ -531,6 +533,58 @@ def test_dense_prefill_on_card_matches_plain(card, arch):
                                rtol=1e-4, atol=1e-4)
 
 
+def _stub(cfg, B, rng):
+    """Seeded media (vlm) or frames (audio), as the reference's tests."""
+    key, rows = {"vlm": ("media", cfg.n_media_tokens),
+                 "audio": ("frames", cfg.n_frames)}.get(cfg.family, (None, 0))
+    return {} if key is None else {key: torch.from_numpy(
+        rng.standard_normal((B, rows, cfg.d_model)).astype(np.float32))}
+
+
+def _reduced_pair(arch, remat="none"):
+    """The reduced config, a CPU model and a card model with its weights
+    (``remat`` on the card's), the VLM's gates (0 at init) at 0.5."""
+    cfg = reduced(get_config(arch))
+    if cfg.family == "hybrid":
+        cfg = cfg.replace(n_layers=5)
+    cpu = build_model(cfg, device="cpu")
+    with torch.no_grad():
+        for cross in getattr(cpu, "cross", ()):
+            cross.gate.fill_(0.5)
+    gpu = build_model(cfg.replace(remat=remat), device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    return cfg, cpu, gpu
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "kimi-k2-1t-a32b",
+                                  "seamless-m4t-large-v2", "llama-3.2-vision-90b"])
+def test_new_family_prefill_on_card_matches_plain(card, arch):
+    """The reduced MoE, enc-dec and VLM models (float32): prefill (one flash
+    launch per self-attention layer, the encoder's too), one decode step
+    (none) and the loss on the card against the same weights on the CPU."""
+    cfg, cpu, gpu = _reduced_pair(arch)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 48)))
+    stub = _stub(cfg, 2, rng)
+    on_card = {"tokens": tokens.cuda(), **{k: v.cuda() for k, v in stub.items()}}
+    n_attn = (cfg.n_layers // cfg.cross_every * (cfg.cross_every - 1) if cfg.family == "vlm"
+              else cfg.n_layers + cfg.n_encoder_layers)           # the encoder's too
+    tfa.reset_launch_counts()
+    got, cache = gpu.prefill(on_card, max_len=50)
+    torch.cuda.synchronize()
+    assert tfa.launch_counts()["flash_attention"] == n_attn
+    want, want_cache = cpu.prefill({"tokens": tokens, **stub}, max_len=50)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    nxt = want.argmax(-1)
+    got2, _ = gpu.decode_step(nxt.cuda(), cache)
+    want2, _ = cpu.decode_step(nxt, want_cache)
+    torch.testing.assert_close(got2.cpu(), want2, rtol=1e-4, atol=1e-4)
+    assert tfa.launch_counts()["flash_attention"] == n_attn      # decode launches none
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1), **stub}
+    torch.testing.assert_close(gpu.loss(batch)[0].cpu(), cpu.loss(batch)[0],
+                               rtol=1e-4, atol=1e-4)
+
+
 # ---------------------------------------------------------------------------
 # training: each kernel's autograd Function, and a reduced train step
 # ---------------------------------------------------------------------------
@@ -646,7 +700,9 @@ def test_grad_disabled_forward_launches_once_per_call(card):
         assert tfa.launch_counts()["flash_attention"] == model.n_super
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "mamba2-1.3b", "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "mamba2-1.3b", "zamba2-1.2b",
+                                  "granite-moe-1b-a400m", "seamless-m4t-large-v2",
+                                  "llama-3.2-vision-90b"])
 def test_reduced_train_step_on_card_matches_cpu(card, arch):
     """One train step of the reduced float32 model on the card (blocks
     recomputed) against the CPU from the same weights: every gradient
@@ -657,14 +713,10 @@ def test_reduced_train_step_on_card_matches_cpu(card, arch):
     from repro_torch.train import OptConfig, init_opt_state, make_train_step
     from repro_torch.train.optim import first_step_bound
 
-    cfg = reduced(get_config(arch))
-    if cfg.family == "hybrid":
-        cfg = cfg.replace(n_layers=5)
-    cpu = build_model(cfg, device="cpu")
-    gpu = build_model(cfg.replace(remat="block"), device="cuda")
-    gpu.load_state_dict(cpu.state_dict())
-    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (4, 48)))
-    batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+    cfg, cpu, gpu = _reduced_pair(arch, remat="block")
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 48)))
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1), **_stub(cfg, 4, rng)}
     grads = []
     for m in (cpu, gpu):
         params = dict(m.named_parameters())

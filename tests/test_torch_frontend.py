@@ -154,6 +154,9 @@ def test_port_imports_neither_jax_nor_reference():
         assert f"repro_torch.{pkg}" in names, pkg
     for mod in ("configs.mamba2_1_3b", "configs.zamba2_1_2b", "configs.olmo_1b",
                 "configs.yi_9b", "configs.starcoder2_3b", "configs.deepseek_67b",
+                "configs.granite_moe_1b_a400m", "configs.kimi_k2_1t_a32b",
+                "configs.seamless_m4t_large_v2", "configs.llama_3_2_vision_90b",
+                "models.moe", "models.accounting",
                 "interop", "models.mamba2",
                 "models.attention", "models.mlp", "models.lm",
                 "data.pipeline", "serve.step", "launch.serve",

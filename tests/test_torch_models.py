@@ -1,8 +1,10 @@
 """The port's counterparts of the reference's model tests
 (``tests/test_models.py``): serve-path consistency for every registered
-arch, the chunked cross-entropy and ``loss`` of the dense, SSM and
-hybrid families against the JAX package on the same inputs, and the
-families the port does not build yet."""
+arch, the chunked cross-entropy and ``loss`` of every family against the
+JAX package on the same inputs, and a family the port does not know.
+Media (VLM) and frames (enc-dec) are seeded standard normals, as in the
+reference's test; the VLM's gates, 0 at init, are set to 0.5 so that
+its cross blocks act."""
 
 import jax
 import jax.numpy as jnp
@@ -17,30 +19,41 @@ from repro.models import build_model as jax_build_model
 from repro.models import chunked_ce_loss as jax_chunked_ce_loss
 from repro.models import unbox
 from repro_torch.configs import ARCHS, get_config, reduced
-from repro_torch.interop import (
-    dense_params_from_reference,
-    hybrid_params_from_reference,
-    ssm_params_from_reference,
-)
+from repro_torch.interop import params_from_reference
 from repro_torch.models import build_model, chunked_ce_loss
 
-CARRY = {"dense": dense_params_from_reference, "ssm": ssm_params_from_reference,
-         "hybrid": hybrid_params_from_reference}
+
+def _stub_inputs(cfg, B, rng):
+    """The reference test's seeded media (vlm) or frames (audio)."""
+    if cfg.family == "vlm":
+        return {"media": rng.standard_normal((B, cfg.n_media_tokens, cfg.d_model))
+                .astype(np.float32)}
+    if cfg.family == "audio":
+        return {"frames": rng.standard_normal((B, cfg.n_frames, cfg.d_model))
+                .astype(np.float32)}
+    return {}
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_arch_serve_consistency(arch):
     """prefill + decode logits == the full-sequence ``hidden`` logits at
-    the matching positions (the reference's test, on the port alone)."""
+    the matching positions (the reference's test, on the port alone);
+    aux is 0 but for the MoE, whose load-balancing loss is positive."""
     cfg = reduced(get_config(arch))
     model = build_model(cfg, device="cpu")
+    for cross in getattr(model, "cross", ()):
+        torch.nn.init.constant_(cross.gate, 0.5)
     rng = np.random.default_rng(0)
     B, S = 2, 16
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S + 1)))
-    h, aux = model.hidden({"tokens": toks[:, :S]})
-    assert float(aux) == 0.0
+    stub = {k: torch.from_numpy(v) for k, v in _stub_inputs(cfg, B, rng).items()}
+    h, aux = model.hidden({"tokens": toks[:, :S], **stub})
+    if cfg.family == "moe":
+        assert np.isfinite(float(aux)) and float(aux) > 0
+    else:
+        assert float(aux) == 0.0
     full = model._logits(h)                                   # (B, S, vocab)
-    lg_p, cache = model.prefill({"tokens": toks[:, :S - 1]}, max_len=S)
+    lg_p, cache = model.prefill({"tokens": toks[:, :S - 1], **stub}, max_len=S)
     torch.testing.assert_close(lg_p, full[:, S - 2], rtol=1e-4, atol=1e-4)
     lg_d, _ = model.decode_step(toks[:, S - 1], cache)
     torch.testing.assert_close(lg_d, full[:, S - 1], rtol=1e-4, atol=1e-4)
@@ -98,19 +111,25 @@ def test_chunked_ce_masks_padded_vocab_rows():
 def test_loss_matches_reference(arch):
     """``hidden`` and ``loss`` (with a quarter of the labels masked) on the
     reference's weights against the JAX package's; the hybrid keeps 5
-    layers, so two supercells and a trailing block."""
-    n_layers = 5 if get_config(arch).family == "hybrid" else 2
+    layers, so two supercells and a trailing block, the VLM 4 (two
+    supercells of a self and a cross block)."""
+    n_layers = {"hybrid": 5, "vlm": 4}.get(get_config(arch).family, 2)
     jm = jax_build_model(jax_reduced(jax_get_config(arch)).replace(n_layers=n_layers))
-    params = unbox(jm.init(jax.random.PRNGKey(0)))
+    params = jax.tree_util.tree_map(np.asarray, unbox(jm.init(jax.random.PRNGKey(0))))
+    if "super_cross" in params:
+        params["super_cross"]["gate"] = np.full_like(params["super_cross"]["gate"], 0.5)
     cfg = reduced(get_config(arch)).replace(n_layers=n_layers)
     model = build_model(cfg, device="cpu")
-    model.load_state_dict(CARRY[cfg.family](cfg, jax.tree_util.tree_map(np.asarray, params)))
+    model.load_state_dict(params_from_reference(cfg, params))
     rng = np.random.default_rng(3)
     toks = rng.integers(0, cfg.vocab, (2, 32)).astype(np.int32)
     labels = rng.integers(0, cfg.vocab, (2, 32)).astype(np.int32)
     labels[:, ::4] = -1
-    jbatch = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}
-    tbatch = {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(labels)}
+    stub = _stub_inputs(cfg, 2, rng)
+    jbatch = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels),
+              **{k: jnp.asarray(v) for k, v in stub.items()}}
+    tbatch = {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(labels),
+              **{k: torch.from_numpy(v) for k, v in stub.items()}}
     jh, _ = jm.hidden(params, jbatch)
     th, _ = model.hidden(tbatch)
     np.testing.assert_allclose(th.detach().numpy(), np.asarray(jh), rtol=1e-5, atol=1e-5)
@@ -120,8 +139,9 @@ def test_loss_matches_reference(arch):
         np.testing.assert_allclose(float(tmet[key]), float(jmet[key]), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("family", ["moe", "vlm", "audio"])
+@pytest.mark.parametrize("family", ["retnet"])
 def test_build_model_raises_for_unported_families(family):
+    """Every family of the reference builds; a family no config has raises."""
     cfg = reduced(get_config("olmo-1b")).replace(family=family)
-    with pytest.raises(NotImplementedError, match="dense, ssm, hybrid"):
+    with pytest.raises(ValueError, match="unknown model family 'retnet'"):
         build_model(cfg, device="cpu")

@@ -170,10 +170,13 @@ def test_lr_schedule_shape():
 def _carried(arch, **over):
     """(reference model, its numpy params, the port's model on the same
     weights, cfg); the hybrid keeps 5 layers (two supercells and a
-    trailing block)."""
-    n_layers = 5 if get_config(arch).family == "hybrid" else 2
+    trailing block), the VLM 4 (two supercells), with its gates, 0 at
+    init, set to 0.5 so that the cross blocks get gradients."""
+    n_layers = {"hybrid": 5, "vlm": 4}.get(get_config(arch).family, 2)
     jm = jax_build_model(jax_reduced(jax_get_config(arch)).replace(n_layers=n_layers))
     params = jax.tree_util.tree_map(np.asarray, unbox(jm.init(jax.random.PRNGKey(0))))
+    if "super_cross" in params:
+        params["super_cross"]["gate"] = np.full_like(params["super_cross"]["gate"], 0.5)
     cfg = reduced(get_config(arch)).replace(n_layers=n_layers, **over)
     model = build_model(cfg, device="cpu")
     model.load_state_dict(params_from_reference(cfg, params))
@@ -181,12 +184,18 @@ def _carried(arch, **over):
 
 
 def _batch(cfg, B, S, seed):
+    """Tokens, labels (a quarter masked) and the seeded media (vlm) or
+    frames (audio), for both packages."""
     rng = np.random.default_rng(seed)
-    toks = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
-    labels = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
-    labels[:, ::4] = -1
-    return ({"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)},
-            {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(labels)})
+    data = {"tokens": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32),
+            "labels": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)}
+    data["labels"][:, ::4] = -1
+    if cfg.family == "vlm":
+        data["media"] = rng.standard_normal((B, cfg.n_media_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.family == "audio":
+        data["frames"] = rng.standard_normal((B, cfg.n_frames, cfg.d_model)).astype(np.float32)
+    return ({k: jnp.asarray(v) for k, v in data.items()},
+            {k: torch.from_numpy(v) for k, v in data.items()})
 
 
 def _port_grads(model, cfg, batch):
@@ -218,11 +227,15 @@ def reference_grads():
 
 
 @pytest.mark.parametrize("remat", ["none", "block"])
-@pytest.mark.parametrize("arch", ["olmo-1b", "mamba2-1.3b", "zamba2-1.2b", "starcoder2-3b"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "mamba2-1.3b", "zamba2-1.2b", "starcoder2-3b",
+                                  "granite-moe-1b-a400m", "seamless-m4t-large-v2",
+                                  "llama-3.2-vision-90b"])
 def test_loss_gradients_match_reference(arch, remat, reference_grads):
     """Every parameter's gradient of ``loss`` against ``jax.grad`` of the
     reference's, leaf by leaf in the reference's layout, without and with
-    block recomputation (nested per supercell in the hybrid)."""
+    block recomputation (nested per supercell in the hybrid); the MoE's
+    router gets its gradient through the gate weights and the aux loss,
+    the VLM's gates and cross blocks theirs through the tanh gate."""
     jm, params, model, cfg = _carried(arch, remat=remat)
     jb, tb = _batch(cfg, 2, 32, seed=3)
     jl, want = reference_grads(arch, cfg, jm, params, jb)
@@ -236,7 +249,7 @@ def test_loss_gradients_match_reference(arch, remat, reference_grads):
         np.testing.assert_allclose(g, w, rtol=0, atol=GRAD_RTOL * np.abs(w).max())
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "mamba2-1.3b"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "mamba2-1.3b", "granite-moe-1b-a400m"])
 def test_train_step_matches_reference(arch):
     """One whole train step (loss, gradients, AdamW from a fresh state) on
     the same weights and batch: loss and gradient norm to float32
@@ -302,9 +315,12 @@ def test_training_reduces_loss():
 def test_every_parameter_gets_a_gradient(arch):
     """Every parameter of the reduced model gets a finite gradient that is
     not zero everywhere (the reference's ``test_arch_smoke_train_step``,
-    per parameter)."""
+    per parameter); the VLM's gates at 0.5, since a zero gate stops the
+    cross attention's gradient."""
     cfg = reduced(get_config(arch)).replace(remat="block")
     model = build_model(cfg, device="cpu")
+    for cross in getattr(model, "cross", ()):
+        torch.nn.init.constant_(cross.gate, 0.5)
     _, tb = _batch(cfg, 2, 32, seed=6)
     params = dict(model.named_parameters())
     loss, _ = model.loss(tb)
@@ -407,7 +423,10 @@ def test_plain_grad_is_not_taken_without_grad():
 # the launcher
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch,accum", [("olmo-1b", 1), ("mamba2-1.3b", 2), ("zamba2-1.2b", 1)])
+@pytest.mark.parametrize("arch,accum", [("olmo-1b", 1), ("mamba2-1.3b", 2), ("zamba2-1.2b", 1),
+                                        ("granite-moe-1b-a400m", 1), ("kimi-k2-1t-a32b", 1),
+                                        ("seamless-m4t-large-v2", 2),
+                                        ("llama-3.2-vision-90b", 1)])
 def test_launch_train_runs_on_cpu(arch, accum):
     out = ttrain.main(["--arch", arch, "--reduced", "--device", "cpu", "--steps", "4",
                        "--batch", "4", "--seq", "32", "--accum", str(accum),
@@ -420,8 +439,8 @@ def test_launch_train_runs_on_cpu(arch, accum):
 def test_launch_train_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="distributed"):
         ttrain.main(["--arch", "olmo-1b", "--reduced", "--device", "cpu", "--mesh", "2x1"])
-    with pytest.raises(SystemExit):             # not a registered arch of the port
-        ttrain.main(["--arch", "granite-moe-1b-a400m", "--device", "cpu"])
+    with pytest.raises(SystemExit):             # not a registered arch
+        ttrain.main(["--arch", "no-such-arch", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="distributed"):
         make_train_step(build_model(reduced(get_config("olmo-1b")), device="cpu"),
                         OptConfig(), compress_pod_grads=True)

@@ -147,6 +147,23 @@ def test_launch_serve_runs_on_cpu(capsys):
 
 
 def test_moe_ffn_is_not_ported():
-    cfg = reduced(get_config(ARCH)).replace(n_experts=4, moe_top_k=2)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        build_model(cfg, device="cpu")
+    """The MoE ffn is ported: a hybrid whose shared block has one builds,
+    and its prefill (the shared block's aux dropped, as the reference's
+    ``apply_tblock(...)[0]``) and loss match the reference's."""
+    over = dict(n_layers=5, n_experts=4, moe_top_k=2)
+    jm = jax_build_model(jax_reduced(jax_get_config(ARCH)).replace(**over))
+    params = unbox(jm.init(jax.random.PRNGKey(0)))
+    cfg = reduced(get_config(ARCH)).replace(**over)
+    model = build_model(cfg, device="cpu")
+    model.load_state_dict(hybrid_params_from_reference(
+        cfg, jax.tree_util.tree_map(np.asarray, params)))
+    assert "shared_attn.moe.router" in model.state_dict()
+    toks = np.random.default_rng(4).integers(0, cfg.vocab, (2, 32)).astype(np.int32)
+    jl, _ = jm.prefill(params, {"tokens": jnp.asarray(toks)})
+    tl, _ = model.prefill({"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    batch = {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}
+    (jloss, jmet) = jm.loss(params, {k: jnp.asarray(v) for k, v in batch.items()})
+    tloss, tmet = model.loss({k: torch.from_numpy(v) for k, v in batch.items()})
+    np.testing.assert_allclose(float(tloss), float(jloss), **TOL)
+    assert float(tmet["aux"]) == float(jmet["aux"]) == 0.0
