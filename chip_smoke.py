@@ -99,7 +99,24 @@ Phases, each fatal on failure:
    backward, cuBLAS, the optimizer, other kernels and idle time (the
    plain backward and the optimizer by the device spans of profiler
    ranges the smoke opens around them);
-9. a ``kernels`` JSON line, and as the last line the device record.
+9. the mesh path at world size 1: a one-rank NCCL process group and a
+   (1, 1) ``("data", "model")`` mesh (``launch.mesh.make_mesh``); olmo-1b
+   at published widths trained on it through the functions
+   ``launch.train``'s mesh branch calls (``build`` with the mesh, which
+   places every parameter as a DTensor by ``param_shardings``;
+   ``batch_at``, which shards phase 8's batches), for phase 8's steps at
+   its lr: every loss within 1e-3 relative of phase 8's at the same
+   step, exactly phase 8's flash launches per step (32, all
+   ``tensor_core``), every gradient finite; its step ms, tokens/s and
+   peak GiB beside phase 8's; one ``self_attention(impl="ring")`` at
+   OLMo's attention shape through the mesh, launching no flash kernel,
+   its ring attention held against the flash kernel's on the same q, k,
+   v within ``FLASH_TOL``, the call timed beside ``impl="blockwise"``; a reduced olmo-1b's DTensor train state after a step on the mesh
+   saved through ``CheckpointStore`` and restored onto its placements,
+   leaf for leaf equal; the group destroyed at the end.  The card holds
+   one GPU, so the mesh is (1, 1): the ranks' arithmetic is held in the
+   CPU tests on gloo (``tests/test_torch_distributed.py``);
+10. a ``kernels`` JSON line, and as the last line the device record.
 
 Run from the repository root:  python3 chip_smoke.py
 Needs one CUDA device and nvcc for sm_90a; exits non-zero without them.
@@ -183,6 +200,14 @@ TRAIN_ARCHS = ("olmo-1b", MAMBA, MOE)
 # the step within train.optim.first_step_bound of that gradient tolerance
 REDUCED_TRAIN = ("olmo-1b", MAMBA, HYBRID, MOE, ENCDEC, "llama-3.2-vision-90b")
 TRAIN_TOL = 1e-4
+# the mesh path at world size 1 against phase 8's run of the same steps:
+# the same weights, batches and kernels in the same order (at one rank the
+# global norm sums tensor by tensor as on one device), so the losses come
+# out equal on an H100; these bf16 steps at lr 3e-3 with gradient norms up
+# to ~66 amplify any rounding difference (a norm summed in another order
+# gave 4.5e-4 by step 5), and 1e-3 relative still catches a wrong gradient
+# scale (a mean taken twice, a shard counted twice) at O(1)
+MESH_ARCH, MESH_LOSS_RTOL = "olmo-1b", 1e-3
 
 
 def sh(*cmd: str) -> str:
@@ -1217,6 +1242,7 @@ def train_split(model, step, state, batch, arch: str):
 
     port = ("ssd_tc::", "ssd::", "flash_tc::", "flash::", "conv1d_")
     gemm = ("gemm", "xmma", "cutlass", "nvjet", "sm90_")
+    nccl = "nccl"                   # the mesh path's collectives (phase 9)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, _ = step(state, batch)
@@ -1253,12 +1279,14 @@ def train_split(model, step, state, batch, arch: str):
             kernels.append(e)
     if {f for *_, f in spans} != set(ranges.values()):
         raise RuntimeError(f"{arch}: the trace holds no device span of {sorted(ranges)}")
-    split = dict.fromkeys(("kernels", "plain_backward", "cublas", "optimizer", "other"), 0.0)
+    split = dict.fromkeys(("kernels", "plain_backward", "cublas", "optimizer", "nccl",
+                           "other"), 0.0)
     for e in kernels:
         t = e.time_range.start
         fam = ("kernels" if any(p in e.name for p in port) else
                next((f for a, b, f in spans if a <= t <= b), None)
-               or ("cublas" if any(g in e.name for g in gemm) else "other"))
+               or ("nccl" if nccl in e.name.lower() else
+                   "cublas" if any(g in e.name for g in gemm) else "other"))
         split[fam] += e.device_time_total / 1e3
     device_ms = sum(split.values())
     print(f"[trace] {arch} warm train step: wall {wall_ms:.1f} ms, device busy "
@@ -1486,6 +1514,205 @@ def training_run(report, arch: str, kernels, entries) -> None:
                      phase="train")
     function_gradients(captured, rec, label)
     captured.clear()
+    torch.cuda.empty_cache()
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_train(report, mesh) -> None:
+    """olmo-1b at published widths trained on the (1, 1) mesh through
+    ``launch.train``'s mesh branch, against phase 8's run."""
+    import numpy as np
+    import torch
+
+    import repro_torch.train.step as tstep
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels import conv1d as tconv
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import ssd as tssd
+    from repro_torch.launch import train as ttrain
+    from torch.distributed.tensor import DTensor
+
+    cfg, dev = get_config(MESH_ARCH), torch.device("cuda")
+    before = report["training"][MESH_ARCH]
+    per_step = 2 * flash_per_forward(cfg)
+    rec = report.setdefault("mesh", {})
+    grads_ok, real = [], tstep.adamw_update
+
+    def adamw(cfg_, grads, state, params, ndims=None):
+        grads_ok.append(all(bool(torch.isfinite(g.to_local() if isinstance(g, DTensor)
+                                                else g).all()) for g in grads.values()))
+        with torch.profiler.record_function("smoke::adamw_update"):
+            return real(cfg_, grads, state, params, ndims)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, state, step = ttrain.build(cfg, dev, TRAIN["lr"], TRAIN["steps"], mesh=mesh)
+    placed = sum(isinstance(p, DTensor) for p in model.parameters())
+    if placed != len(list(model.parameters())):
+        raise RuntimeError(f"mesh: {placed} of the parameters are DTensors")
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN["seq"],
+                                    global_batch=TRAIN["batch"]))
+    for mod in (tconv, tssd, tfa):
+        mod.reset_launch_counts()
+    tstep.adamw_update = adamw
+    losses, step_s = [], []
+    try:
+        for i in range(TRAIN["steps"]):
+            batch = ttrain.batch_at(pipe, i, cfg, dev, mesh)
+            t0 = time.time()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))                # waits for the step
+            step_s.append(time.time() - t0)
+        torch.cuda.synchronize()
+        counts = {**tconv.launch_counts(), **tssd.launch_counts(), **tssd.instance_counts(),
+                  **tfa.launch_counts(), **tfa.instance_counts()}
+        rec["split"], state, traced = train_split(
+            model, step, state, ttrain.batch_at(pipe, 0, cfg, dev, mesh), f"{MESH_ARCH} mesh")
+    finally:
+        tstep.adamw_update = real
+    want = {"flash_attention": TRAIN["steps"] * per_step,
+            "flash_attention/tensor_core": TRAIN["steps"] * per_step}
+    if {k: counts.get(k) for k in want} != want or any(
+            n for k, n in counts.items() if k not in want):
+        raise RuntimeError(f"mesh: launches {counts}, expected {want}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, before["losses"])]
+    if len(losses) != len(before["losses"]) or not all(np.isfinite(losses)) or \
+            max(rel) > MESH_LOSS_RTOL:
+        raise RuntimeError(f"mesh: losses {losses} against phase 8's {before['losses']}")
+    if traced != {k: n // TRAIN["steps"] for k, n in want.items()}:
+        raise RuntimeError(f"mesh: the traced step launched {traced}")
+    if len(grads_ok) != TRAIN["steps"] + 2 or not all(grads_ok):
+        raise RuntimeError(f"mesh: a gradient is not finite ({grads_ok})")
+    step_ms = 1e3 * statistics.median(step_s[1:])
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    rec.update({"losses": losses, "loss_rel_vs_phase8": max(rel), "step_ms": step_ms,
+                "tokens_per_s": tokens / (step_ms / 1e3), "peak_gib": peak,
+                "launches_per_step": per_step, "phase8": {
+                    k: before[k] for k in ("step_ms", "tokens_per_s", "peak_gib")}})
+    print(f"[mesh] {MESH_ARCH} on the (1, 1) mesh at full width, {TRAIN['steps']} steps of "
+          f"{TRAIN['batch']} x {TRAIN['seq']} tokens: step {step_ms:.1f} ms (phase 8 "
+          f"{before['step_ms']:.1f}), {rec['tokens_per_s']:.0f} tokens/s (phase 8 "
+          f"{before['tokens_per_s']:.0f}), peak {peak:.2f} GiB (phase 8 "
+          f"{before['peak_gib']:.2f}); losses " + " ".join(f"{x:.4f}" for x in losses)
+          + f", max relative gap to phase 8 {max(rel):.2e}; flash {per_step} per step, all "
+          f"tensor_core; every gradient finite")
+    del model, state, step
+
+
+def mesh_ring(report, mesh) -> None:
+    """``self_attention(impl="ring")`` at OLMo's attention shape on the
+    (1, 1) mesh: its attention (``ring_attention`` on the projections)
+    held against the flash kernel's on the same q, k, v within
+    ``FLASH_TOL``, the call launching no flash kernel; the whole call
+    timed beside ``impl="blockwise"``, which runs the flash kernel."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import ring_attention
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.models import attention as attn
+    from repro_torch.models.lm import _attn_cfg
+
+    cfg = get_config(MESH_ARCH)
+    acfg = _attn_cfg(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = attn.init_attention(gen, acfg, torch.bfloat16)
+    rng = np.random.default_rng(SEED)
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    x = randn((B, S, cfg.d_model), torch.bfloat16, rng)
+    with torch.no_grad():
+        q, k, v = attn.qkv(params, x, torch.arange(S, device="cuda").expand(B, S), acfg)
+        tfa.reset_launch_counts()
+        attn.self_attention(params, x, acfg, impl="ring", mesh=mesh)
+        n_ring = tfa.launch_counts().get("flash_attention", 0)
+        ring = ring_attention(q, k, v, mesh, axis="model", causal=True)
+        flash = tfa.flash_attention(q, k, v, causal=True)
+        err = float((ring.float() - flash.float()).abs().max())
+        ring_ms = statistics.median(event_times(
+            lambda: attn.self_attention(params, x, acfg, impl="ring", mesh=mesh), n=5))
+        flash_ms = statistics.median(event_times(
+            lambda: attn.self_attention(params, x, acfg, impl="blockwise"), n=5))
+    if n_ring or not err <= FLASH_TOL["bfloat16"]:
+        raise RuntimeError(f"mesh ring: max|err| {err:.3e} against the flash kernel "
+                           f"(tolerance {FLASH_TOL['bfloat16']}); the ring call launched "
+                           f"{n_ring} flash kernels")
+    shape = (B, S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    report.setdefault("mesh", {})["ring"] = {"shape": shape, "max_abs_err": err,
+                                            "ms": ring_ms, "flash_ms": flash_ms}
+    print(f"[mesh] self_attention(impl='ring') {shape} bf16 on the (1, 1) mesh: "
+          f"{ring_ms:.3f} ms, impl='blockwise' (the flash kernel) {flash_ms:.3f} ms; "
+          f"ring attention against the flash kernel max|err| {err:.3e} (tolerance "
+          f"{FLASH_TOL['bfloat16']})")
+
+
+def mesh_checkpoint(report, mesh) -> None:
+    """A reduced olmo-1b's DTensor train state after a step on the mesh,
+    saved and restored onto its placements: every leaf equal."""
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointStore, tree_flatten
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.interop import train_state_tree
+    from repro_torch.launch import train as ttrain
+    from torch.distributed.tensor import DTensor
+
+    rcfg, dev = reduced(get_config(MESH_ARCH)), torch.device("cuda")
+    model, state, step = ttrain.build(rcfg, dev, 3e-3, 10, mesh=mesh)
+    pipe = TokenPipeline(DataConfig(vocab=rcfg.vocab, seq_len=64, global_batch=8))
+    state, _ = step(state, ttrain.batch_at(pipe, 0, rcfg, dev, mesh))
+    root = os.path.join(ROOT, "build", "smoke_mesh_checkpoint")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        tree = train_state_tree(rcfg, model, state)
+        store = CheckpointStore(root)
+        store.save(1, tree, extra={"data_step": 1})
+        at, got, extra = store.restore_latest(tree, ttrain.state_placements(tree), mesh)
+        a, _ = tree_flatten(tree)
+        b, _ = tree_flatten(got)
+        same = [type(p) is type(q) and (not isinstance(p, DTensor) or
+                                        p.placements == q.placements)
+                and torch.equal(p.full_tensor() if isinstance(p, DTensor) else p,
+                                q.full_tensor() if isinstance(q, DTensor) else q)
+                for p, q in zip(a, b)]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    n_dt = sum(isinstance(p, DTensor) for p in a)
+    if (at, extra) != (1, {"data_step": 1}) or len(a) != len(b) or not all(same):
+        raise RuntimeError(f"mesh checkpoint: {sum(same)} of {len(a)} leaves equal")
+    report.setdefault("mesh", {})["checkpoint_leaves"] = len(a)
+    print(f"[mesh] reduced {MESH_ARCH}'s train state on the mesh ({n_dt} DTensor leaves "
+          f"of {len(a)}) saved and restored onto its placements: every leaf equal")
+
+
+def mesh_path(report) -> None:
+    """Phase 9: the mesh path at world size 1 over NCCL."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        mesh_train(report, mesh)
+        torch.cuda.empty_cache()
+        mesh_ring(report, mesh)
+        mesh_checkpoint(report, mesh)
+    finally:
+        dist.destroy_process_group()
     torch.cuda.empty_cache()
 
 
@@ -1778,7 +2005,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     training_path(serving_kernels, report, entries)
 
-    # -- 9. records ------------------------------------------------------------
+    # -- 9. the mesh path at world size 1 over NCCL ------------------------------
+    mesh_path(report)
+
+    # -- 10. records -----------------------------------------------------------
     report["card"] = card
     report["seconds"] = time.perf_counter() - t_start
     os.makedirs(os.path.dirname(REPORT), exist_ok=True)

@@ -19,9 +19,13 @@
   the raw bytes.
 * **exact data resume** — the pipeline cursor rides in ``extra``.
 
-Restoring onto a mesh of another shape waits for the distributed part of
-the port; a leaf comes back on the device of the matching leaf of
-``like``.
+* **mesh-shape independence** — a DTensor leaf is saved whole: its
+  shards are gathered on every rank (a collective) and rank 0 alone
+  writes, then the ranks meet at a barrier.  ``restore`` gives each leaf
+  on the device of the matching leaf of ``like``, or, where
+  ``placements`` gives one for it, as a DTensor of those placements on
+  ``mesh``, cut from the whole leaf every rank reads: a checkpoint
+  written on one mesh restores on another, or on one process.
 """
 
 from __future__ import annotations
@@ -35,6 +39,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 BF16_DESCR = "<V2"         # how numpy writes an ml_dtypes bfloat16 array
 
@@ -84,9 +90,22 @@ def tree_unflatten(like: Any, leaves: List[Any]) -> Any:
     return build(like)
 
 
+def _leaves_like(tree: Any, like: Any) -> List[Any]:
+    """``tree``'s nodes at the places of ``like``'s leaves, in flatten
+    order: ``tree`` has ``like``'s structure down to those places, and
+    whatever it holds there (a list of placements, None) is one leaf."""
+    if isinstance(like, dict):
+        return [x for k in sorted(like) for x in _leaves_like(tree[k], like[k])]
+    if isinstance(like, (tuple, list)):
+        return [x for t, l in zip(tree, like) for x in _leaves_like(t, l)]
+    return [tree]
+
+
 def _host(leaf: Any) -> Tuple[np.ndarray, str]:
     """A copy of ``leaf`` on the host as numpy, and its manifest dtype; a
-    bfloat16 leaf as its raw 2-byte words."""
+    bfloat16 leaf as its raw 2-byte words.  A DTensor is gathered whole."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True).contiguous()
         if t.dtype == torch.bfloat16:
@@ -107,6 +126,7 @@ class CheckpointStore:
         self.root = pathlib.Path(root)
         self.root.mkdir(parents=True, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
+        self._meet = False               # the last save was a distributed one
 
     # ------------------------------------------------------------------
     def latest_step(self) -> Optional[int]:
@@ -155,32 +175,49 @@ class CheckpointStore:
         tmp.rename(final)
 
     # ------------------------------------------------------------------
-    def save(self, step: int, state: Any,
-             extra: Optional[Dict[str, Any]] = None) -> None:
+    def _snapshot(self, state: Any):
+        """(host leaves, structure, whether this rank writes): DTensor leaves
+        are gathered on every rank, and rank 0 alone writes them."""
         self.wait()
         leaves, treedef = tree_flatten(state)
-        self._write(step, [_host(l) for l in leaves], treedef, extra or {})
+        host = [_host(l) for l in leaves]
+        self._meet = any(isinstance(l, DTensor) for l in leaves)
+        return host, treedef, not self._meet or dist.get_rank() == 0
+
+    def save(self, step: int, state: Any,
+             extra: Optional[Dict[str, Any]] = None) -> None:
+        host, treedef, writes = self._snapshot(state)
+        if writes:
+            self._write(step, host, treedef, extra or {})
+        self.wait()
 
     def save_async(self, step: int, state: Any,
                    extra: Optional[Dict[str, Any]] = None) -> None:
-        self.wait()
-        leaves, treedef = tree_flatten(state)
-        host = [_host(l) for l in leaves]                        # snapshot
-        self._thread = threading.Thread(
-            target=self._write, args=(step, host, treedef, extra or {}),
-            daemon=True)
-        self._thread.start()
+        host, treedef, writes = self._snapshot(state)                # snapshot
+        if writes:
+            self._thread = threading.Thread(
+                target=self._write, args=(step, host, treedef, extra or {}),
+                daemon=True)
+            self._thread.start()
 
     def wait(self) -> None:
+        """Join the outstanding write; after a distributed save, the ranks
+        meet here, so none reads before rank 0 has written."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._meet:
+            self._meet = False
+            dist.barrier()
 
     # ------------------------------------------------------------------
-    def restore(self, step: int, like: Any) -> Tuple[Any, Dict[str, Any]]:
+    def restore(self, step: int, like: Any, placements: Optional[Any] = None,
+                mesh=None) -> Tuple[Any, Dict[str, Any]]:
         """Restore into the structure of ``like``: each leaf a tensor of the
         manifest's dtype, on the device of ``like``'s leaf where that is a
-        tensor, else on the CPU."""
+        tensor, else on the CPU.  ``placements``, a tree of ``like``'s
+        structure with a list of DTensor placements (or None) for each
+        leaf, makes those leaves DTensors on ``mesh``."""
         d = self.root / f"step_{step}"
         manifest = json.loads((d / "MANIFEST.json").read_text())
         leaves_like, _ = tree_flatten(like)
@@ -188,8 +225,12 @@ class CheckpointStore:
             raise ValueError(f"checkpoint/state structure mismatch: "
                              f"{len(manifest['leaves'])} leaves stored, "
                              f"{len(leaves_like)} expected")
+        layout = ([None] * len(leaves_like) if placements is None
+                  else _leaves_like(placements, like))
+        if any(pl is not None for pl in layout) and mesh is None:
+            raise ValueError("restoring onto placements needs their mesh")
         out = []
-        for meta, ref in zip(manifest["leaves"], leaves_like):
+        for meta, ref, pl in zip(manifest["leaves"], leaves_like, layout):
             arr = np.load(d / meta["name"])
             if zlib.crc32(arr.tobytes()) & 0xFFFFFFFF != meta["crc"]:
                 raise IOError(f"checksum mismatch in {meta['name']}")
@@ -197,14 +238,16 @@ class CheckpointStore:
                 t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
             else:
                 t = torch.from_numpy(arr)
-            out.append(t.to(ref.device) if isinstance(ref, torch.Tensor) else t)
+            t = t.to(ref.device) if isinstance(ref, torch.Tensor) else t
+            out.append(t if pl is None else
+                       distribute_tensor(t, mesh, pl, src_data_rank=None))
         return tree_unflatten(like, out), manifest["extra"]
 
-    def restore_latest(self, like: Any):
+    def restore_latest(self, like: Any, placements: Optional[Any] = None, mesh=None):
         step = self.latest_step()
         if step is None:
             return None
-        state, extra = self.restore(step, like)
+        state, extra = self.restore(step, like, placements, mesh)
         return step, state, extra
 
     # ------------------------------------------------------------------

@@ -11,7 +11,9 @@ this package's ``state_dict``, through one ``*_params_from_reference``
 per family, and :func:`reference_tree` goes the other way.  :func:`train_state_tree` and
 :func:`load_train_state` carry a whole train state, the parameters and
 the optimizer's ``OptState``, in the reference's layout: the tree the
-checkpoint store writes and both packages read.
+checkpoint store writes and both packages read.  :func:`logical_axes`
+gives each parameter the reference's logical axes, which the sharding
+rules resolve against a mesh.
 """
 
 from __future__ import annotations
@@ -253,6 +255,47 @@ def reference_ndims(cfg, params: Mapping[str, torch.Tensor]) -> Dict[str, int]:
         elif head in ("cross", "enc_blocks"):
             lead = 1
         out[k] = p.ndim + lead
+    return out
+
+
+# the reference's logical axes (src/repro/models/{attention,mlp,moe,mamba2}.py)
+# by (part, leaf name); a norm's leaves are ("embed",) whatever the part
+_AXES = {
+    **{(part, "wq"): ("embed", "heads", "head_dim") for part in ("attn", "xattn")},
+    **{(part, w): ("embed", "kv_heads", "head_dim")
+       for part in ("attn", "xattn") for w in ("wk", "wv")},
+    **{(part, "wo"): ("heads", "head_dim", "embed") for part in ("attn", "xattn")},
+    ("mlp", "w_up"): ("embed", "ff"), ("mlp", "w_gate"): ("embed", "ff"),
+    ("mlp", "w_down"): ("ff", "embed"),
+    ("moe", "router"): ("embed", "expert"), ("moe", "w_gate"): ("expert", "embed", "ff"),
+    ("moe", "w_up"): ("expert", "embed", "ff"), ("moe", "w_down"): ("expert", "ff", "embed"),
+    ("mamba", "w_in"): ("embed", "inner"), ("mamba", "conv_w"): ("conv", "inner"),
+    ("mamba", "conv_b"): ("inner",), ("mamba", "a_log"): ("heads",),
+    ("mamba", "dt_bias"): ("heads",), ("mamba", "d_skip"): ("heads",),
+    ("mamba", "norm_scale"): ("inner",), ("mamba", "w_out"): ("inner", "embed"),
+    ("embed", "table"): ("vocab", "embed"),
+}
+
+
+def logical_axes(cfg, model: torch.nn.Module) -> Dict[str, tuple]:
+    """Per parameter of the port's ``model``, the reference's logical axes
+    of the leaf that holds it (``src/repro/models/common.py:21-31``), less
+    the ``layers`` axes a stacked leaf carries: the port's blocks are a
+    flat ``ModuleList``.  The VLM's scalar gate has none."""
+    out = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        leaf, part = parts[-1], parts[-2] if len(parts) > 1 else ""
+        if leaf == "gate" and p.ndim == 0:
+            out[name] = ()
+        elif leaf in ("scale", "bias"):
+            out[name] = ("embed",)
+        elif (part, leaf) in _AXES:
+            out[name] = _AXES[part, leaf]
+        else:
+            raise KeyError(f"{cfg.name}: no logical axes for parameter {name}")
+        if len(out[name]) != p.ndim:
+            raise ValueError(f"{name}: axes {out[name]} for shape {tuple(p.shape)}")
     return out
 
 

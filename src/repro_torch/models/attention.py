@@ -1,12 +1,13 @@
 """Grouped-query attention: full-sequence, prefill, decode and cross
-attention (mirrors ``src/repro/models/attention.py``; ring attention
-across cards is not ported yet).
+attention (mirrors ``src/repro/models/attention.py``).
 
 Where the reference calls its jnp ``blockwise_attention`` (the point at
 which a real TPU would run the Pallas flash kernel), ``self_attention``
 and ``prefill_attention`` call the port's
 :func:`~repro_torch.kernels.flash_attention.flash_attention`: on a CUDA
 tensor the hand-written CUDA kernel, on a CPU tensor its plain version.
+With ``impl="ring"`` and a mesh whose ``model`` axis divides the sequence
+they run ``distributed.ring_attention`` instead, as the reference does.
 ``blockwise_attention`` is the reference's flash-style algorithm in
 plain PyTorch, kept for parity with the JAX package; decode is plain
 PyTorch, as it is plain jnp in the reference.  Cross attention never
@@ -128,27 +129,41 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out[:, :Sq].to(q.dtype)
 
 
+def _ring_applies(impl: str, mesh, S: int) -> bool:
+    """The reference's condition for ring attention: ``impl="ring"``, a
+    mesh with a ``model`` axis, and S divisible by that axis."""
+    if impl != "ring" or mesh is None or "model" not in (mesh.mesh_dim_names or ()):
+        return False
+    return S % mesh.size(mesh.mesh_dim_names.index("model")) == 0
+
+
 def self_attention(params: Params, x: torch.Tensor, cfg: AttnConfig,
-                   impl: str = "blockwise") -> torch.Tensor:
+                   impl: str = "blockwise", mesh=None) -> torch.Tensor:
     """Full-sequence self-attention with no cache (the training and
     full-forward compute).  x: (B, S, D).
 
-    ``impl`` is the reference's and does not change the function: without
-    a mesh the reference runs ``blockwise_attention`` for "blockwise" and
-    ``naive_attention`` for anything else, "ring" included, and both
-    compute what the flash kernel computes.  Sequence-parallel ring
-    attention across cards waits for the distributed part of the port."""
-    return prefill_attention(params, x, cfg, impl=impl)[0]
+    ``impl="ring"`` runs sequence-parallel ring attention over the mesh's
+    ``model`` axis (``distributed.ring_attention``): the right choice when
+    heads cannot shard over |model|.  Otherwise ``impl`` does not change
+    the function: the reference falls back to ``blockwise_attention`` for
+    "blockwise" and to ``naive_attention`` for anything else (no mesh, or
+    S not divisible by |model|), and both compute what the flash kernel
+    computes."""
+    return prefill_attention(params, x, cfg, impl=impl, mesh=mesh)[0]
 
 
 def prefill_attention(params: Params, x: torch.Tensor, cfg: AttnConfig,
-                      impl: str = "blockwise"):
+                      impl: str = "blockwise", mesh=None):
     """:func:`self_attention` that also returns the (k, v) cache.
     x: (B, S, D)."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     q, k, v = qkv(params, x, positions, cfg)
-    out = flash_attention(q, k, v, causal=cfg.causal)
+    if _ring_applies(impl, mesh, S):
+        from repro_torch.distributed.ring_attention import ring_attention
+        out = ring_attention(q, k, v, mesh, axis="model", causal=cfg.causal)
+    else:
+        out = flash_attention(q, k, v, causal=cfg.causal)
     return _output(out, params["wo"]), (k, v)
 
 

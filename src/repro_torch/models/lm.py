@@ -20,20 +20,52 @@ the reference does.  Cross-entropy runs over sequence chunks
 (:func:`chunked_ce_loss`), so the (B, S, vocab) logits are never held.
 The MoE ffn returns the router's load-balancing loss, summed over the
 layers as ``aux``; ``loss`` adds 0.01 x aux.  ``build_model(cfg, device,
-generator)`` is the factory.  Entry points run on the card unless
+generator, mesh)`` is the factory.  Entry points run on the card unless
 ``device="cpu"`` is asked for; ``device="meta"`` builds the parameters'
 shapes only, drawing nothing (``models.accounting``).
+
+On a mesh (``mesh=`` a ``DeviceMesh``; one process per coordinate) the
+model trains as the reference's does under GSPMD, computing the same
+function:
+
+* the parameters are drawn whole from the same seed on every rank, as
+  the one-device model draws them, and are then placed as DTensors by
+  ``sharding.param_shardings`` (``launch.train`` does so; a sharded init
+  is later work); each block gathers its own parameters whole just
+  before it runs and drops them after (ZeRO-3), so its gradients come
+  back reduce-scattered onto the shards (``distributed.collectives``);
+* ``hidden`` and ``loss`` take the global batch as DTensors
+  (``sharding.shard_batch``) and compute on this rank's batch shard over
+  (pod, data); activations are plain local tensors, checked at the
+  reference's block boundaries (``sharding.constrain_batch``), so the
+  kernels take plain tensors as on one device;
+* ``loss`` returns this rank's share of the global loss: the
+  cross-entropy's sum over its tokens over the global token count, and
+  its share of the load-balancing loss, so that the shares summed over
+  the batch shards are the reference's loss and the gradients summed
+  there its gradients;
+* ``attn_impl="ring"`` runs ``distributed.ring_attention`` over the
+  ``model`` axis where the sequence divides it;
+* serving (``prefill``, ``decode_step``) on a mesh is not ported and
+  raises.
+
+Without a mesh every path is the one-device path, unchanged.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Any, Dict, Optional
 
 import torch
 import torch.nn as nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.collectives import batch_sum, gather_param
+from repro_torch.sharding.rules import constrain_batch
 from . import attention as attn
 from . import mamba2 as m2
 from . import mlp as mlpm
@@ -72,6 +104,40 @@ def _generator(dev: torch.device,
     return generator
 
 
+@contextlib.contextmanager
+def _gathered(mesh, *modules: nn.Module):
+    """For the duration, each DTensor parameter of ``modules`` gathered
+    whole as a plain tensor in its module's place (ZeRO-3); nothing
+    without a mesh."""
+    swapped = []
+    if mesh is not None:
+        for mod in modules:
+            for sub in mod.modules():
+                swapped += [(sub, name, p) for name, p in sub._parameters.items()
+                            if isinstance(p, DTensor)]
+        for sub, name, p in swapped:
+            sub._parameters[name] = gather_param(p)
+    try:
+        yield
+    finally:
+        for sub, name, p in swapped:
+            sub._parameters[name] = p
+
+
+def _serving(fn):
+    """Run ``fn`` under ``torch.inference_mode``; serving on a mesh is not
+    ported and raises."""
+    @functools.wraps(fn)
+    def wrapper(self, *args, **kwargs):
+        if self.mesh is not None:
+            raise NotImplementedError(f"{type(self).__name__}.{fn.__name__} on a mesh: "
+                                      f"serving across ranks is not ported; the mesh "
+                                      f"path trains (hidden, loss)")
+        with torch.inference_mode():
+            return fn(self, *args, **kwargs)
+    return wrapper
+
+
 def _pad_kv(kv: torch.Tensor, max_len: Optional[int]) -> torch.Tensor:
     """Pad a stacked KV cache (..., S, KV, Dh) with zeros along S to
     ``max_len`` so decode steps have room to append."""
@@ -96,9 +162,11 @@ def _attn_cfg(cfg: ModelConfig, causal: bool = True) -> attn.AttnConfig:
 
 def chunked_ce_loss(table: torch.Tensor, hidden: torch.Tensor,
                     labels: torch.Tensor, chunk: int = CE_CHUNK,
-                    valid_vocab: Optional[int] = None) -> torch.Tensor:
+                    valid_vocab: Optional[int] = None, mesh=None) -> torch.Tensor:
     """hidden: (B, S, D); labels: (B, S) (-1 = masked).  Mean NLL over the
-    unmasked labels, float32, computed ``chunk`` positions at a time.
+    unmasked labels, float32, computed ``chunk`` positions at a time.  On a
+    mesh, this batch shard's summed NLL over the global count of unmasked
+    labels: its share of the global mean.
 
     ``valid_vocab``: when the embedding table is padded to a lane multiple
     (``cfg.pad_vocab_multiple``), rows >= valid_vocab get a -1e30 logit so
@@ -125,6 +193,8 @@ def chunked_ce_loss(table: torch.Tensor, hidden: torch.Tensor,
         mask = (lab >= 0).float()
         tot = tot + torch.sum((logz - gold) * mask)
         cnt = cnt + torch.sum(mask)
+    if mesh is not None:
+        cnt = batch_sum(cnt, mesh)
     return tot / torch.clamp(cnt, min=1.0)
 
 
@@ -175,26 +245,36 @@ class TBlock(Block):
         super().__init__(init_tblock(gen, cfg, dtype))
 
 
-def _apply_ffn(p: Block, x: torch.Tensor, cfg: ModelConfig):
+def _apply_ffn(p: Block, x: torch.Tensor, cfg: ModelConfig, mesh=None):
     """(y, aux): the MoE's dense dispatch and its load-balancing loss, or
-    the MLP and None.  ``moe_impl="sharded"`` also runs the dense
-    dispatch: the reference does so without a mesh, and one card has
-    none."""
+    the MLP and None.  ``moe_impl="sharded"`` runs the dense dispatch
+    without a mesh (as the reference does) and on a one-device mesh; on a
+    larger mesh it raises, since the sharded dispatch, whose capacity
+    drops make another function, is not ported yet."""
     if cfg.n_experts:
-        return moem.apply_moe_dense(p.moe, x, cfg.moe_top_k, cfg.n_experts)
+        if cfg.moe_impl == "sharded" and mesh is not None and mesh.size() > 1:
+            raise NotImplementedError(
+                f"{cfg.name}: moe_impl='sharded' on a mesh of {mesh.size()} devices "
+                f"needs the sharded MoE dispatch (ROADMAP Queue 1), not ported "
+                f"yet; moe_impl='dense' trains on a mesh")
+        return moem.apply_moe_dense(p.moe, x, cfg.moe_top_k, cfg.n_experts, mesh)
     return mlpm.apply_mlp(p.mlp, x, cfg.mlp), None
 
 
-def apply_tblock(p: TBlock, x: torch.Tensor, cfg: ModelConfig):
+def apply_tblock(p: TBlock, x: torch.Tensor, cfg: ModelConfig, mesh=None,
+                 global_batch: Optional[int] = None):
     """x: (B, S, D) -> (x', aux), the full-sequence block; aux is a float32
-    0 for the MLP."""
+    0 for the MLP.  On a mesh x is this rank's batch shard of
+    ``global_batch`` rows and p's parameters are whole (gathered)."""
+    x = constrain_batch(x, mesh, global_batch)
     h = apply_norm(p.ln1, x, cfg.norm, impl=cfg.norm_impl)
-    x = x + attn.self_attention(p.attn, h, _attn_cfg(cfg), impl=cfg.attn_impl)
+    x = x + attn.self_attention(p.attn, h, _attn_cfg(cfg), impl=cfg.attn_impl, mesh=mesh)
+    x = constrain_batch(x, mesh, global_batch)
     h = apply_norm(p.ln2, x, cfg.norm, impl=cfg.norm_impl)
-    y, aux = _apply_ffn(p, h, cfg)
+    y, aux = _apply_ffn(p, h, cfg, mesh)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + y, aux
+    return constrain_batch(x + y, mesh, global_batch), aux
 
 
 def prefill_tblock(p: TBlock, x: torch.Tensor, cfg: ModelConfig):
@@ -226,14 +306,15 @@ class Model(nn.Module):
     float32, whatever ``tie_embeddings`` says, as in the reference.  The
     weights are drawn from ``generator`` (seed 0 on ``device`` if None).
     On the card every attention prefill runs the CUDA flash-attention
-    kernel once per layer."""
+    kernel once per layer.  ``mesh``: see the module docstring."""
 
     def __init__(self, cfg: ModelConfig, device: str = "cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         super().__init__()
         dev = _device(device)
         generator = _generator(dev, generator)
         self.cfg = cfg
+        self.mesh = mesh
         self.dtype = _dtype(cfg)
         self.embed = nn.ParameterDict({"table": embed_init(
             generator, (cfg.padded_vocab, cfg.d_model), self.dtype)})
@@ -269,29 +350,58 @@ class Model(nn.Module):
             return checkpoint(fn, *args, use_reentrant=False)
         return fn(*args)
 
-    def _backbone(self, x: torch.Tensor, batch: Dict[str, torch.Tensor]):
+    def _tblock(self, blk: nn.Module, x: torch.Tensor, gb: Optional[int]):
+        """A transformer block with its parameters gathered on a mesh."""
+        with _gathered(self.mesh, blk):
+            return apply_tblock(blk, x, self.cfg, self.mesh, gb)
+
+    def _backbone(self, x: torch.Tensor, batch: Dict[str, torch.Tensor],
+                  gb: Optional[int] = None):
         """The blocks over the embedded tokens -> (x, aux summed over the
-        layers)."""
+        layers); ``gb`` is the global batch on a mesh."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for blk in self.blocks:
-            x, a = self._remat(apply_tblock, blk, x, self.cfg)
+            x, a = self._remat(self._tblock, blk, x, gb)
             aux = aux + a
         return x, aux
 
+    def _local_batch(self, batch: Dict[str, torch.Tensor]):
+        """(batch, global batch size): without a mesh the batch as it is and
+        None; on a mesh each entry, a DTensor of the global batch, as this
+        rank's shard over (pod, data)."""
+        if self.mesh is None:
+            return batch, None
+        out = {}
+        for k, v in batch.items():
+            if not isinstance(v, DTensor):
+                raise TypeError(f"on a mesh batch[{k!r}] must be a DTensor of the "
+                                f"global batch (sharding.shard_batch), not a "
+                                f"{type(v).__name__}")
+            out[k] = constrain_batch(v, self.mesh).to_local()
+        return out, batch["tokens"].shape[0]
+
+    def _hidden(self, batch: Dict[str, torch.Tensor], gb: Optional[int]):
+        cfg = self.cfg
+        with _gathered(self.mesh, self.embed, self.ln_f):
+            x = self.embed["table"][batch["tokens"].to(self.device)]
+            x, aux = self._backbone(x, batch, gb)
+            return apply_norm(self.ln_f, x, cfg.norm, impl=cfg.norm_impl), aux
+
     def hidden(self, batch: Dict[str, torch.Tensor]):
         """batch["tokens"]: (B, S), plus ``media`` (vlm) or ``frames``
-        (audio) -> (final-norm hidden (B, S, D), aux)."""
-        cfg = self.cfg
-        x, aux = self._backbone(self.embed["table"][batch["tokens"].to(self.device)],
-                                batch)
-        return apply_norm(self.ln_f, x, cfg.norm, impl=cfg.norm_impl), aux
+        (audio) -> (final-norm hidden (B, S, D), aux); on a mesh this rank's
+        batch shard of the hidden states and its share of aux."""
+        return self._hidden(*self._local_batch(batch))
 
     def loss(self, batch: Dict[str, torch.Tensor]):
         """Mean cross-entropy of ``batch["labels"]`` (-1 = masked) plus
-        0.01 x aux; returns (loss, {"ce", "aux"})."""
-        h, aux = self.hidden(batch)
-        ce = chunked_ce_loss(self.embed["table"], h, batch["labels"].to(self.device),
-                             valid_vocab=self.cfg.vocab)
+        0.01 x aux; returns (loss, {"ce", "aux"}).  On a mesh each is this
+        rank's share, summing over the batch shards to the global value."""
+        batch, gb = self._local_batch(batch)
+        with _gathered(self.mesh, self.embed):
+            h, aux = self._hidden(batch, gb)
+            ce = chunked_ce_loss(self.embed["table"], h, batch["labels"].to(self.device),
+                                 valid_vocab=self.cfg.vocab, mesh=self.mesh)
         return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
     # -- serving --------------------------------------------------------------
@@ -302,7 +412,7 @@ class Model(nn.Module):
                 "v": torch.zeros(shape, dtype=self.dtype, device=self.device),
                 "pos": torch.zeros(batch_size, dtype=torch.int32, device=self.device)}
 
-    @torch.inference_mode()
+    @_serving
     def prefill(self, batch: Dict[str, torch.Tensor],
                 max_len: Optional[int] = None):
         """batch["tokens"]: (B, S) -> (last logits (B, vocab), cache); the
@@ -319,7 +429,7 @@ class Model(nn.Module):
             "k": _pad_kv(torch.stack(ks), max_len), "v": _pad_kv(torch.stack(vs), max_len),
             "pos": torch.full((B,), S, dtype=torch.int32, device=self.device)}
 
-    @torch.inference_mode()
+    @_serving
     def decode_step(self, tokens: torch.Tensor, cache):
         """tokens: (B,) -> (logits (B, vocab), new cache).  The k/v caches
         are written at ``pos`` in place and returned as they are."""
@@ -362,12 +472,12 @@ class VLMModel(Model):
     holds the self blocks' k/v per (supercell, block) and the media."""
 
     def __init__(self, cfg: ModelConfig, device: str = "cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         if cfg.cross_every < 2 or cfg.n_layers % cfg.cross_every:
             raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not make "
                              f"supercells of cross_every={cfg.cross_every}")
         generator = _generator(_device(device), generator)
-        super().__init__(cfg, device=device, generator=generator)
+        super().__init__(cfg, device=device, generator=generator, mesh=mesh)
         self.cross = nn.ModuleList([Block(init_xblock(generator, cfg, self.dtype, False))
                                     for _ in range(self.n_super)])
 
@@ -385,19 +495,20 @@ class VLMModel(Model):
     def _apply_cross(self, cp: Block, x: torch.Tensor,
                      media: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        h = apply_norm(cp.ln1, x, cfg.norm, impl=cfg.norm_impl)
-        x = x + torch.tanh(cp.gate) * attn.cross_attention(
-            cp.xattn, h, media, _attn_cfg(cfg, causal=False))
-        h = apply_norm(cp.ln2, x, cfg.norm, impl=cfg.norm_impl)
-        return x + mlpm.apply_mlp(cp.mlp, h, cfg.mlp)
+        with _gathered(self.mesh, cp):
+            h = apply_norm(cp.ln1, x, cfg.norm, impl=cfg.norm_impl)
+            x = x + torch.tanh(cp.gate) * attn.cross_attention(
+                cp.xattn, h, media, _attn_cfg(cfg, causal=False))
+            h = apply_norm(cp.ln2, x, cfg.norm, impl=cfg.norm_impl)
+            return x + mlpm.apply_mlp(cp.mlp, h, cfg.mlp)
 
-    def _backbone(self, x: torch.Tensor, batch: Dict[str, torch.Tensor]):
+    def _backbone(self, x: torch.Tensor, batch: Dict[str, torch.Tensor],
+                  gb: Optional[int] = None):
         media = batch["media"].to(self.device, self.dtype)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for s in range(self.n_super):
             for j in range(self.n_self):
-                x, a = self._remat(apply_tblock, self.blocks[s * self.n_self + j],
-                                   x, self.cfg)
+                x, a = self._remat(self._tblock, self.blocks[s * self.n_self + j], x, gb)
                 aux = aux + a
             x = self._apply_cross(self.cross[s], x, media)
         return x, aux
@@ -412,7 +523,7 @@ class VLMModel(Model):
                                      dtype=self.dtype, device=self.device),
                 "pos": torch.zeros(batch_size, dtype=torch.int32, device=self.device)}
 
-    @torch.inference_mode()
+    @_serving
     def prefill(self, batch: Dict[str, torch.Tensor],
                 max_len: Optional[int] = None):
         """batch["tokens"]: (B, S), batch["media"]: (B, M, D) -> (last logits
@@ -436,7 +547,7 @@ class VLMModel(Model):
             "media": media,
             "pos": torch.full((B,), S, dtype=torch.int32, device=self.device)}
 
-    @torch.inference_mode()
+    @_serving
     def decode_step(self, tokens: torch.Tensor, cache):
         """tokens: (B,) -> (logits (B, vocab), new cache); the k/v caches are
         written at ``pos`` in place."""
@@ -468,14 +579,19 @@ class SSMModel(Model):
                             head_dim=cfg.ssm_head_dim, expand=cfg.ssm_expand,
                             conv_width=cfg.conv_width, chunk=cfg.ssm_chunk)
 
-    def _mamba(self, i: int, x: torch.Tensor) -> torch.Tensor:
-        """Block i over the full sequence, without its states."""
-        cfg, blk = self.cfg, self.blocks[i]
-        return x + blk.mamba(apply_norm(blk.ln, x, cfg.norm, impl=cfg.norm_impl))
+    def _mamba(self, i: int, x: torch.Tensor, gb: Optional[int] = None) -> torch.Tensor:
+        """Block i over the full sequence, without its states (its
+        parameters gathered on a mesh)."""
+        cfg, blk, mesh = self.cfg, self.blocks[i], self.mesh
+        with _gathered(mesh, blk):
+            x = constrain_batch(x, mesh, gb)
+            y = x + blk.mamba(apply_norm(blk.ln, x, cfg.norm, impl=cfg.norm_impl))
+            return constrain_batch(y, mesh, gb)
 
-    def _backbone(self, x: torch.Tensor, batch: Dict[str, torch.Tensor]):
+    def _backbone(self, x: torch.Tensor, batch: Dict[str, torch.Tensor],
+                  gb: Optional[int] = None):
         for i in range(self.cfg.n_layers):
-            x = self._remat(self._mamba, i, x)
+            x = self._remat(self._mamba, i, x, gb)
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
     def init_cache(self, batch_size: int, seq_len: int) -> Dict[str, Any]:
@@ -506,7 +622,7 @@ class SSMModel(Model):
         ssms.append(ss)
         return x + y
 
-    @torch.inference_mode()
+    @_serving
     def prefill(self, batch: Dict[str, torch.Tensor],
                 max_len: Optional[int] = None):
         """batch["tokens"]: (B, S) -> (last logits (B, vocab), cache)."""
@@ -520,7 +636,7 @@ class SSMModel(Model):
             "conv": torch.stack(convs).to(self.dtype), "ssm": torch.stack(ssms),
             "pos": torch.full((B,), S, dtype=torch.int32, device=self.device)}
 
-    @torch.inference_mode()
+    @_serving
     def decode_step(self, tokens: torch.Tensor, cache):
         """tokens: (B,) -> (logits (B, vocab), new cache)."""
         x = self.embed["table"][tokens.to(self.device)]           # (B, D)
@@ -545,9 +661,9 @@ class HybridModel(SSMModel):
     block runs the CUDA flash-attention kernel once per prefill."""
 
     def __init__(self, cfg: ModelConfig, device: str = "cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         generator = _generator(_device(device), generator)
-        super().__init__(cfg, device=device, generator=generator)
+        super().__init__(cfg, device=device, generator=generator, mesh=mesh)
         self.n_super = cfg.n_layers // cfg.attn_every
         self.n_trail = cfg.n_layers - self.n_super * cfg.attn_every
         self.shared_attn = TBlock(cfg, generator, self.dtype)
@@ -560,23 +676,24 @@ class HybridModel(SSMModel):
         cache["attn_v"] = torch.zeros(shape, dtype=self.dtype, device=self.device)
         return cache
 
-    def _supercell(self, s: int, x: torch.Tensor) -> torch.Tensor:
+    def _supercell(self, s: int, x: torch.Tensor, gb: Optional[int] = None) -> torch.Tensor:
         """The shared attention block, then supercell s's Mamba-2 blocks
         (each one recomputed on its own under remat)."""
         ne = self.cfg.attn_every
-        x = apply_tblock(self.shared_attn, x, self.cfg)[0]
+        x = self._tblock(self.shared_attn, x, gb)[0]
         for j in range(ne):
-            x = self._remat(self._mamba, s * ne + j, x)
+            x = self._remat(self._mamba, s * ne + j, x, gb)
         return x
 
-    def _backbone(self, x: torch.Tensor, batch: Dict[str, torch.Tensor]):
+    def _backbone(self, x: torch.Tensor, batch: Dict[str, torch.Tensor],
+                  gb: Optional[int] = None):
         for s in range(self.n_super):
-            x = self._remat(self._supercell, s, x)
+            x = self._remat(self._supercell, s, x, gb)
         for t in range(self.n_trail):
-            x = self._remat(self._mamba, self.n_super * self.cfg.attn_every + t, x)
+            x = self._remat(self._mamba, self.n_super * self.cfg.attn_every + t, x, gb)
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
-    @torch.inference_mode()
+    @_serving
     def prefill(self, batch: Dict[str, torch.Tensor],
                 max_len: Optional[int] = None):
         """batch["tokens"]: (B, S) -> (last logits (B, vocab), cache); the
@@ -600,7 +717,7 @@ class HybridModel(SSMModel):
             "attn_v": _pad_kv(torch.stack(vs), max_len),
             "pos": torch.full((B,), S, dtype=torch.int32, device=self.device)}
 
-    @torch.inference_mode()
+    @_serving
     def decode_step(self, tokens: torch.Tensor, cache):
         """tokens: (B,) -> (logits (B, vocab), new cache).  The k/v caches
         are written at ``pos`` in place and returned as they are."""
@@ -637,9 +754,9 @@ class EncDecModel(Model):
     Under remat every encoder and decoder block is recomputed."""
 
     def __init__(self, cfg: ModelConfig, device: str = "cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         generator = _generator(_device(device), generator)
-        super().__init__(cfg, device=device, generator=generator)
+        super().__init__(cfg, device=device, generator=generator, mesh=mesh)
         self.enc_blocks = nn.ModuleList([
             Block(init_tblock(generator, cfg, self.dtype))
             for _ in range(cfg.n_encoder_layers)])
@@ -649,21 +766,24 @@ class EncDecModel(Model):
     def _block(self, gen: torch.Generator) -> nn.Module:
         return Block(init_xblock(gen, self.cfg, self.dtype, True))
 
-    def _enc_block(self, blk: Block, x: torch.Tensor) -> torch.Tensor:
-        cfg = self.cfg
-        h = apply_norm(blk.ln1, x, cfg.norm, impl=cfg.norm_impl)
-        x = x + attn.self_attention(blk.attn, h, _attn_cfg(cfg, causal=False),
-                                    impl=cfg.attn_impl)
-        h = apply_norm(blk.ln2, x, cfg.norm, impl=cfg.norm_impl)
-        return x + mlpm.apply_mlp(blk.mlp, h, cfg.mlp)
+    def _enc_block(self, blk: Block, x: torch.Tensor, gb: Optional[int] = None) -> torch.Tensor:
+        cfg, mesh = self.cfg, self.mesh
+        with _gathered(mesh, blk):
+            x = constrain_batch(x, mesh, gb)
+            h = apply_norm(blk.ln1, x, cfg.norm, impl=cfg.norm_impl)
+            x = x + attn.self_attention(blk.attn, h, _attn_cfg(cfg, causal=False),
+                                        impl=cfg.attn_impl, mesh=mesh)
+            h = apply_norm(blk.ln2, x, cfg.norm, impl=cfg.norm_impl)
+            return constrain_batch(x + mlpm.apply_mlp(blk.mlp, h, cfg.mlp), mesh, gb)
 
-    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+    def encode(self, frames: torch.Tensor, gb: Optional[int] = None) -> torch.Tensor:
         """frames: (B, F, D) stubbed speech embeddings -> memory (B, F, D)."""
         cfg = self.cfg
         x = frames.to(self.device, self.dtype)
         for blk in self.enc_blocks:
-            x = self._remat(self._enc_block, blk, x)
-        return apply_norm(self.enc_ln, x, cfg.norm, impl=cfg.norm_impl)
+            x = self._remat(self._enc_block, blk, x, gb)
+        with _gathered(self.mesh, self.enc_ln):
+            return apply_norm(self.enc_ln, x, cfg.norm, impl=cfg.norm_impl)
 
     def _cross_mlp(self, blk: Block, x: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
         """A decoder block's cross attention and MLP."""
@@ -673,16 +793,21 @@ class EncDecModel(Model):
         h = apply_norm(blk.ln2, x, cfg.norm, impl=cfg.norm_impl)
         return x + mlpm.apply_mlp(blk.mlp, h, cfg.mlp)
 
-    def _dec_block(self, blk: Block, x: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
-        cfg = self.cfg
-        h = apply_norm(blk.ln1, x, cfg.norm, impl=cfg.norm_impl)
-        x = x + attn.self_attention(blk.attn, h, _attn_cfg(cfg), impl=cfg.attn_impl)
-        return self._cross_mlp(blk, x, memory)
+    def _dec_block(self, blk: Block, x: torch.Tensor, memory: torch.Tensor,
+                   gb: Optional[int] = None) -> torch.Tensor:
+        cfg, mesh = self.cfg, self.mesh
+        with _gathered(mesh, blk):
+            x = constrain_batch(x, mesh, gb)
+            h = apply_norm(blk.ln1, x, cfg.norm, impl=cfg.norm_impl)
+            x = x + attn.self_attention(blk.attn, h, _attn_cfg(cfg), impl=cfg.attn_impl,
+                                        mesh=mesh)
+            return self._cross_mlp(blk, x, memory)
 
-    def _backbone(self, x: torch.Tensor, batch: Dict[str, torch.Tensor]):
-        memory = self.encode(batch["frames"])
+    def _backbone(self, x: torch.Tensor, batch: Dict[str, torch.Tensor],
+                  gb: Optional[int] = None):
+        memory = self.encode(batch["frames"], gb)
         for blk in self.blocks:
-            x = self._remat(self._dec_block, blk, x, memory)
+            x = self._remat(self._dec_block, blk, x, memory, gb)
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
     def init_cache(self, batch_size: int, seq_len: int) -> Dict[str, Any]:
@@ -691,7 +816,7 @@ class EncDecModel(Model):
                                       dtype=self.dtype, device=self.device)
         return cache
 
-    @torch.inference_mode()
+    @_serving
     def prefill(self, batch: Dict[str, torch.Tensor],
                 max_len: Optional[int] = None):
         """batch["tokens"]: (B, S), batch["frames"]: (B, F, D) -> (last
@@ -715,7 +840,7 @@ class EncDecModel(Model):
             "memory": memory,
             "pos": torch.full((B,), S, dtype=torch.int32, device=self.device)}
 
-    @torch.inference_mode()
+    @_serving
     def decode_step(self, tokens: torch.Tensor, cache):
         """tokens: (B,) -> (logits (B, vocab), new cache); the k/v caches are
         written at ``pos`` in place; the encoder does not run."""
@@ -736,8 +861,11 @@ _FAMILIES = {"dense": Model, "moe": Model, "vlm": VLMModel, "ssm": SSMModel,
 
 
 def build_model(cfg: ModelConfig, device: str = "cuda",
-                generator: Optional[torch.Generator] = None) -> nn.Module:
+                generator: Optional[torch.Generator] = None, mesh=None) -> nn.Module:
+    """The model of ``cfg.family``; ``mesh`` is kept on it (module
+    docstring); its parameters are plain tensors until placed
+    (``sharding.place_params``)."""
     if cfg.family not in _FAMILIES:
         raise ValueError(f"unknown model family {cfg.family!r} ({cfg.name}); "
                          f"have {', '.join(_FAMILIES)}")
-    return _FAMILIES[cfg.family](cfg, device=device, generator=generator)
+    return _FAMILIES[cfg.family](cfg, device=device, generator=generator, mesh=mesh)

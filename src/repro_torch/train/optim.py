@@ -14,6 +14,11 @@ dimensions (``interop.reference_ndims``).
 ``torch.optim.AdamW`` differs on each of these points.  The reference
 returns new arrays; here the parameters and moments are updated in place,
 which saves a copy of each on the card.
+
+On a mesh the parameters, their gradients and the moments are DTensors
+of the same placements: the update is elementwise, so it runs on each
+rank's shards, and the global norm that clipping reads is taken over the
+whole tensors (each element once, whatever shard holds it).
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ import math
 from typing import Dict, Iterable, Mapping, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -58,19 +65,55 @@ def lr_schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
     return torch.where(step < cfg.warmup_steps, warm, cfg.lr * cos)
 
 
+def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
+    """float32 zeros of ``p``'s shape (a DTensor of its placements for one)."""
+    if isinstance(p, DTensor):
+        return torch.zeros_like(p, dtype=torch.float32).detach()
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
 def init_opt_state(params: Mapping[str, torch.Tensor]) -> OptState:
     return OptState(
-        mu={k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-            for k, p in params.items()},
-        nu={k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-            for k, p in params.items()},
+        mu={k: _zeros_f32(p) for k, p in params.items()},
+        nu={k: _zeros_f32(p) for k, p in params.items()},
         count=torch.zeros((), dtype=torch.int32,
                           device=next(iter(params.values())).device))
 
 
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tensors))
+    """sqrt of the sum of squares of every element, in float32, summed
+    tensor by tensor in order.  A DTensor's elements count once each: its
+    local sum is added over the mesh dimensions that split it (one
+    all-reduce per mesh dimension, for all the tensors it splits), so a
+    mesh of one rank sums exactly as one device does."""
+    sums, split = [], []
+    for t in tensors:
+        if not isinstance(t, DTensor):
+            sums.append(torch.sum(torch.square(t.float())))
+            split.append((None, ()))
+            continue
+        if any(pl.is_partial() for pl in t.placements):
+            raise ValueError(f"global_norm of a partial DTensor {t.placements}")
+        mesh = t.device_mesh
+        split.append((mesh, tuple(i for i, pl in enumerate(t.placements)
+                                  if pl.is_shard() and mesh.size(i) > 1)))
+        sums.append(torch.sum(torch.square(t.to_local().float())))
+    groups = {(id(m), i): (m, i) for m, dims in split for i in dims}
+    if groups:
+        v = torch.stack(sums)
+        for (mid, i), (mesh, _) in groups.items():
+            mask = torch.tensor([id(m) == mid and i in dims for m, dims in split],
+                                device=v.device)
+            part = torch.where(mask, v, torch.zeros_like(v))
+            dist.all_reduce(part, group=mesh.get_group(i))
+            v = torch.where(mask, part, v)
+        sums = list(v.unbind())
+    return torch.sqrt(sum(sums))
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (the tensor itself, so writes land in it)."""
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 @torch.no_grad()
@@ -81,7 +124,8 @@ def adamw_update(cfg: OptConfig, grads: Mapping[str, torch.Tensor], state: OptSt
     """One AdamW step.  ``params``, ``state.mu`` and ``state.nu`` are
     updated in place; returns (params, new state, {"grad_norm", "lr"})
     with the gradient norm taken before clipping.  A parameter is decayed
-    where ``ndims`` (its own dimensions if None) is 2 or more."""
+    where ``ndims`` (its own dimensions if None) is 2 or more.  DTensor
+    parameters take gradients and moments of their placements."""
     gnorm = global_norm(grads[k] for k in params)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
     count = state.count + 1
@@ -89,8 +133,12 @@ def adamw_update(cfg: OptConfig, grads: Mapping[str, torch.Tensor], state: OptSt
     b1c = 1 - cfg.b1 ** count.float()
     b2c = 1 - cfg.b2 ** count.float()
     for k, p in params.items():
-        g = grads[k].float() * scale
-        m, v = state.mu[k], state.nu[k]
+        if isinstance(p, DTensor) and grads[k].placements != p.placements:
+            raise ValueError(f"{k}: gradient placed {grads[k].placements}, "
+                             f"parameter {p.placements}")
+        g = _local(grads[k]).float() * scale
+        m, v = _local(state.mu[k]), _local(state.nu[k])
+        p = _local(p)
         m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
         v.copy_(cfg.b2 * v + (1 - cfg.b2) * torch.square(g))
         step = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)

@@ -738,3 +738,50 @@ def test_reduced_train_step_on_card_matches_cpu(card, arch):
         tol = first_step_bound(old[k], p.detach(), grads[0][k], scale, lr, 1e-4)
         diff = (card[k].detach().cpu().double() - p.detach().double()).abs()
         assert bool((diff <= tol).all()), k
+
+
+def test_one_rank_nccl_mesh_train_step_matches_one_device(card):
+    """A one-rank NCCL process group and its (1, 1) ``("data", "model")``
+    mesh: the reduced olmo-1b placed on it as DTensors trains two steps
+    through ``launch.train``'s mesh branch with the same losses and
+    parameters as the one-device path on the card (the same kernels on
+    the same values; 1e-6 of each leaf's largest for the order of a
+    reduction), and its flash launches are the one-device path's."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.launch import train as ttrain
+    from repro_torch.launch.mesh import make_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        cfg = reduced(get_config("olmo-1b")).replace(remat="block")
+        pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4))
+        dev = torch.device("cuda")
+        runs = []
+        for m in (None, mesh):
+            model, state, step = ttrain.build(cfg, dev, 3e-3, 10, mesh=m)
+            tfa.reset_launch_counts()
+            losses = []
+            for i in range(2):
+                state, met = step(state, ttrain.batch_at(pipe, i, cfg, dev, m))
+                losses.append(float(met["loss"]))
+            torch.cuda.synchronize()
+            params = {k: (p.full_tensor() if isinstance(p, DTensor) else p).detach().cpu()
+                      for k, p in model.named_parameters()}
+            runs.append((losses, params, tfa.launch_counts()))
+        (l0, p0, n0), (l1, p1, n1) = runs
+        assert n0 == n1 and n0["flash_attention"] == 2 * 2 * cfg.n_layers
+        np.testing.assert_allclose(l1, l0, rtol=1e-6)
+        for k, p in p0.items():
+            torch.testing.assert_close(p1[k], p, rtol=0, atol=1e-6 * float(p.abs().max()))
+    finally:
+        dist.destroy_process_group()

@@ -43,6 +43,7 @@ from repro_torch.kernels import ssd as tssd
 from repro_torch.kernels.autograd import PlainGrad, with_plain_grad
 from repro_torch.launch import train as ttrain
 from repro_torch.models import build_model
+from repro_torch.models import lm
 from repro_torch.train import OptConfig, OptState, adamw_update, init_opt_state, make_train_step
 from repro_torch.train.optim import first_step_bound, global_norm, lr_schedule
 
@@ -436,11 +437,28 @@ def test_launch_train_runs_on_cpu(arch, accum):
     assert out["step_ms"] > 0 and out["peak_gib"] is None and out["wall_s"] > 0
 
 
+class _Mesh:
+    """What the sharded-MoE refusal and the serving guard read of a mesh."""
+    mesh_dim_names = ("data", "model")
+
+    def size(self, dim=None):
+        return 2 if dim is not None else 4
+
+
 def test_launch_train_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="distributed"):
+    """A mesh without its ranks, an unknown arch, the sharded MoE dispatch
+    on a mesh of several devices and serving on a mesh raise; the
+    multi-rank paths themselves are in tests/test_torch_distributed.py."""
+    with pytest.raises(RuntimeError, match="2 ranks"):
         ttrain.main(["--arch", "olmo-1b", "--reduced", "--device", "cpu", "--mesh", "2x1"])
     with pytest.raises(SystemExit):             # not a registered arch
         ttrain.main(["--arch", "no-such-arch", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="distributed"):
-        make_train_step(build_model(reduced(get_config("olmo-1b")), device="cpu"),
-                        OptConfig(), compress_pod_grads=True)
+    cfg = reduced(get_config("granite-moe-1b-a400m")).replace(moe_impl="sharded")
+    model = build_model(cfg, device="cpu")
+    x = torch.zeros(2, 8, cfg.d_model)
+    with pytest.raises(NotImplementedError, match="sharded MoE dispatch"):
+        lm._apply_ffn(model.blocks[0], x, cfg, _Mesh())
+    assert lm._apply_ffn(model.blocks[0], x, cfg)[0].shape == x.shape   # no mesh: dense
+    model.mesh = _Mesh()
+    with pytest.raises(NotImplementedError, match="serving"):
+        model.prefill({"tokens": torch.zeros(2, 8, dtype=torch.long)})
