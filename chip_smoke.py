@@ -116,7 +116,30 @@ Phases, each fatal on failure:
    leaf for leaf equal; the group destroyed at the end.  The card holds
    one GPU, so the mesh is (1, 1): the ranks' arithmetic is held in the
    CPU tests on gloo (``tests/test_torch_distributed.py``);
-10. a ``kernels`` JSON line, and as the last line the device record.
+10. the sharded MoE dispatch on phase 9's (1, 1) NCCL mesh: the reduced
+   granite with ``moe_impl="sharded"`` under each schedule on the card
+   against the CPU's (1, 1) mesh (logits and loss within 1e-4, every
+   dispatch's kept pairs equal; the CPU side runs first, on a gloo group
+   of its own); full-width granite-moe-1b-a400m with its published
+   ``moe_impl="sharded"``, ``moe_schedule="auto"`` (``2d_dshard`` at one
+   rank), built with the mesh, serves phase 6's traffic through
+   ``serve.generate`` with launch counts read around the run (24 flash
+   per prefill, all ``tensor_core``, none per decode step): prefill and
+   decode times and peak beside phase 7's granite (the dense dispatch),
+   cap and the share of dropped pairs per layer, a traced prefill with
+   the dispatch as its ``moe`` family; layer 0's MoE input from that run
+   through the dispatch against the dense dispatch with the dropped
+   pairs' gates zeroed (kept pairs by a cumulative count, equal exactly; the
+   output within 4 bf16 ulps of its row's scale), both timed cold; the
+   flash kernel's entry on that run; then 6 steps of phase 8's training
+   through ``launch.train``'s mesh branch (48 flash per step, finite
+   losses and gradients, the drop share per step, step ms, tokens/s and
+   peak beside phase 8's, one warm step traced with a ``moe`` family);
+11. the dry run (``python -m repro_torch.launch.dryrun``), each cell in a
+   subprocess of its own: granite-moe-1b-a400m x train_4k on (16, 16)
+   and kimi-k2-1t-a32b x decode_32k on (2, 16, 16) (its MoE on
+   ``2d_dshard``), their per-rank bytes, FLOPs and collectives;
+12. a ``kernels`` JSON line, and as the last line the device record.
 
 Run from the repository root:  python3 chip_smoke.py
 Needs one CUDA device and nvcc for sm_90a; exits non-zero without them.
@@ -208,6 +231,13 @@ TRAIN_TOL = 1e-4
 # gave 4.5e-4 by step 5), and 1e-3 relative still catches a wrong gradient
 # scale (a mean taken twice, a shard counted twice) at O(1)
 MESH_ARCH, MESH_LOSS_RTOL = "olmo-1b", 1e-3
+# the sharded MoE dispatch on the (1, 1) mesh (phase 10): the reduced
+# granite card vs CPU (float32) within the reduced models' tolerance, per
+# schedule; the dry run's cells (phase 11), each in a subprocess of its own
+MOE_SCHEDULES = ("2d", "ep_tp", "2d_dshard")
+MOE_CARD_TOL = 1e-4
+DRYRUN_CELLS = (("granite-moe-1b-a400m", "train_4k", False),
+                ("kimi-k2-1t-a32b", "decode_32k", True))
 
 
 def sh(*cmd: str) -> str:
@@ -621,13 +651,14 @@ def reduced_card_vs_cpu(report, arch: str) -> None:
           f"{float(ref_loss):.4f} |err| {loss_err:.2e}")
 
 
-def prefill_split(model, batch, arch: str) -> dict:
+def prefill_split(model, batch, arch: str, moe_fn: str = "_expert_ffn") -> dict:
     """Device time of one warm full-width prefill by kernel family, from a
     ``torch.profiler`` trace (CPU and CUDA activity), beside the prefill's
     wall time measured without the profiler.  A MoE's expert products
-    (``moe._expert_ffn``, wrapped here in a ``smoke::moe`` range) are the
-    ``moe`` family: every kernel that starts inside that range's device
-    span, as ``train_split`` reads its ranges."""
+    (``moe._expert_ffn``, wrapped here in a ``smoke::moe`` range; or the
+    function of ``moe`` named ``moe_fn``, the whole sharded dispatch on a
+    mesh) are the ``moe`` family: every kernel that starts inside that
+    range's device span, as ``train_split`` reads its ranges."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import record_function
@@ -643,17 +674,17 @@ def prefill_split(model, batch, arch: str) -> dict:
     model.prefill(batch)
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
-    real_ffn = moem._expert_ffn
+    real_ffn = getattr(moem, moe_fn)
 
-    def traced_ffn(*args):
+    def traced_ffn(*args, **kwargs):
         with record_function("smoke::moe"):
-            return real_ffn(*args)
+            return real_ffn(*args, **kwargs)
 
-    moem._expert_ffn = traced_ffn
+    setattr(moem, moe_fn, traced_ffn)
     try:
         events = traced(lambda: model.prefill(batch), f"{arch} prefill")
     finally:
-        moem._expert_ffn = real_ffn
+        setattr(moem, moe_fn, real_ffn)
     spans, kernels = [], []
     for e in events:
         if e.device_type == DeviceType.CUDA:
@@ -1220,7 +1251,7 @@ def checkpoint_round_trip(report, model, state, rcfg) -> None:
           f"steps, reduced mamba2-1.3b bf16): {leaves} tensors bitwise equal")
 
 
-def train_split(model, step, state, batch, arch: str):
+def train_split(model, step, state, batch, arch: str, moe: bool = False):
     """Device time of one warm full-width train step by family, from a
     ``torch.profiler`` trace (CPU and CUDA activity), beside the step's
     wall time measured without the profiler: the port's kernels (forward
@@ -1230,10 +1261,15 @@ def train_split(model, step, state, batch, arch: str):
     and other kernels.  A range leaves a device-side annotation spanning
     the kernels launched inside it; a kernel belongs to the range whose
     span holds its start (one stream, so spans hold nothing else).
+    With ``moe`` the sharded MoE dispatch (``moe.apply_moe_sharded``, in a
+    ``smoke::moe`` range: routing, buffers and expert products, in the
+    forward and in the backward's recompute) is a family of its own.
     Returns the split, the state and the launches of the traced step."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import record_function
+
+    import repro_torch.models.moe as moem
 
     from repro_torch.kernels import conv1d as tconv
     from repro_torch.kernels import flash_attention as tfa
@@ -1248,11 +1284,15 @@ def train_split(model, step, state, batch, arch: str):
     state, _ = step(state, batch)
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
-    real_backward = PlainGrad.backward
+    real_backward, real_moe = PlainGrad.backward, moem.apply_moe_sharded
 
     def traced_backward(ctx, *cotangents):
         with record_function("smoke::plain_backward"):
             return real_backward(ctx, *cotangents)
+
+    def traced_moe(*args, **kwargs):
+        with record_function("smoke::moe"):
+            return real_moe(*args, **kwargs)
 
     def traced_step():
         nonlocal state
@@ -1261,14 +1301,18 @@ def train_split(model, step, state, batch, arch: str):
         state, _ = step(state, batch)
 
     PlainGrad.backward = staticmethod(traced_backward)
+    if moe:
+        moem.apply_moe_sharded = traced_moe
     try:
         events = traced(traced_step, f"{arch} train step")
     finally:
         PlainGrad.backward = staticmethod(real_backward)
+        moem.apply_moe_sharded = real_moe
     launches = {k: n for k, n in {**tconv.launch_counts(), **tssd.launch_counts(),
                                   **tssd.instance_counts(), **tfa.launch_counts(),
                                   **tfa.instance_counts()}.items() if n}
-    ranges = {"smoke::plain_backward": "plain_backward", "smoke::adamw_update": "optimizer"}
+    ranges = {"smoke::plain_backward": "plain_backward", "smoke::adamw_update": "optimizer",
+              **({"smoke::moe": "moe"} if moe else {})}
     spans, kernels = [], []
     for e in events:
         if e.device_type != DeviceType.CUDA:
@@ -1279,8 +1323,8 @@ def train_split(model, step, state, batch, arch: str):
             kernels.append(e)
     if {f for *_, f in spans} != set(ranges.values()):
         raise RuntimeError(f"{arch}: the trace holds no device span of {sorted(ranges)}")
-    split = dict.fromkeys(("kernels", "plain_backward", "cublas", "optimizer", "nccl",
-                           "other"), 0.0)
+    split = dict.fromkeys(("kernels", "plain_backward", *(("moe",) if moe else ()), "cublas",
+                           "optimizer", "nccl", "other"), 0.0)
     for e in kernels:
         t = e.time_range.start
         fam = ("kernels" if any(p in e.name for p in port) else
@@ -1695,13 +1739,391 @@ def mesh_checkpoint(report, mesh) -> None:
           f"of {len(a)}) saved and restored onto its placements: every leaf equal")
 
 
-def mesh_path(report) -> None:
-    """Phase 9: the mesh path at world size 1 over NCCL."""
+def drop_share(log) -> float:
+    """The share of (token, choice) pairs that the dispatches in ``log``
+    (``moe.route_log``) dropped."""
+    pairs = sum(int(e["keep"].numel()) for e in log)
+    kept = sum(int(e["keep"].sum()) for e in log)
+    return (pairs - kept) / max(pairs, 1)
+
+
+def moe_cpu_reference() -> dict:
+    """The reduced granite (``moe_impl="sharded"``) on the CPU's (1, 1)
+    mesh, on a one-rank gloo group of its own (destroyed after), per
+    schedule: the prefill's logits, the loss and every dispatch's kept
+    pairs, for phase 10's card-vs-CPU check."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.moe import route_log
+    from repro_torch.sharding import place_params, shard_batch
+
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, 256, (2, 48)))
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+    out = {"batch": batch}
+    mesh = make_host_mesh()
+    try:
+        for sched in MOE_SCHEDULES:
+            rcfg = reduced(get_config(MOE)).replace(moe_impl="sharded", moe_schedule=sched)
+            model = build_model(rcfg, device="cpu", mesh=mesh,
+                                generator=torch.Generator().manual_seed(SEED))
+            state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+            place_params(model, mesh)
+            with torch.inference_mode(), route_log() as log:
+                logits, _ = model.prefill(shard_batch(batch, mesh))
+                loss, _ = model.loss(shard_batch(batch, mesh))
+            out[sched] = {"logits": logits, "loss": loss, "state": state,
+                          "keep": [e["keep"].clone() for e in log]}
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def moe_card_vs_cpu(report, mesh, cpu_ref) -> None:
+    """Phase 10: the reduced granite (``moe_impl="sharded"``) on the card's
+    (1, 1) NCCL mesh under each schedule against the CPU's (1, 1) mesh:
+    the prefill's logits and the loss within ``MOE_CARD_TOL``, every
+    dispatch's kept pairs equal."""
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build_model
+    from repro_torch.models.moe import route_log
+    from repro_torch.sharding import place_params, shard_batch
+
+    rec = report.setdefault("mesh_moe", {}).setdefault("reduced_card_vs_cpu", {})
+    batch = {k: v.cuda() for k, v in cpu_ref["batch"].items()}
+    for sched in MOE_SCHEDULES:
+        want = cpu_ref[sched]
+        rcfg = reduced(get_config(MOE)).replace(moe_impl="sharded", moe_schedule=sched)
+        model = build_model(rcfg, device="cuda", mesh=mesh)
+        model.load_state_dict(want["state"])
+        place_params(model, mesh)
+        with torch.inference_mode(), route_log() as log:
+            logits, _ = model.prefill(shard_batch(batch, mesh))
+            loss, _ = model.loss(shard_batch(batch, mesh))
+        err = float((logits.cpu() - want["logits"]).abs().max())
+        loss_err = float((loss.cpu() - want["loss"]).abs())
+        same = len(log) == len(want["keep"]) and all(
+            torch.equal(e["keep"].cpu(), k) for e, k in zip(log, want["keep"]))
+        if not (err <= MOE_CARD_TOL and loss_err <= MOE_CARD_TOL and same):
+            raise RuntimeError(f"mesh moe {sched}: card vs CPU max|err| logits {err:.2e}, "
+                               f"loss {loss_err:.2e} (tolerance {MOE_CARD_TOL}); kept pairs "
+                               f"equal: {same}")
+        dropped = drop_share(log)
+        rec[sched] = {"logits_err": err, "loss_err": loss_err, "drop_share": dropped}
+        print(f"[mesh-moe] reduced {MOE} (moe_impl='sharded', {sched}) on the card's (1, 1) "
+              f"mesh vs the CPU's: max|err| logits {err:.2e}, loss {float(want['loss']):.4f} "
+              f"|err| {loss_err:.2e}, kept pairs equal in all {len(log)} dispatches "
+              f"({100 * dropped:.2f} % of pairs dropped)")
+
+
+def moe_model_on_mesh(mesh):
+    """Full-width granite (its published ``moe_impl="sharded"``,
+    ``moe_schedule="auto"``) built with the mesh from the serving seed and
+    placed by ``rules_for``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.sharding import place_params
+    from repro_torch.sharding.rules import rules_for
+
+    cfg = get_config(MOE)
+    model = build_model(cfg, device="cuda", mesh=mesh,
+                        generator=torch.Generator(device="cuda").manual_seed(SEED))
+    return place_params(model, mesh, rules_for(cfg, mesh))
+
+
+def moe_route_check(report, mesh, captured) -> None:
+    """Phase 10: layer 0's MoE input from the served prefill through the
+    sharded dispatch, against the dense dispatch with the dropped pairs'
+    gate weights set to zero.  The oracle finds the kept pairs its own way,
+    by the reference's cumulative count over a one-hot (the dispatch sorts
+    the pairs by expert); they must equal the dispatch's exactly, and its
+    output the dispatch's within ``ROUNDED_ULPS`` bf16 ulps of its row's
+    scale.  Both timed, cold L2."""
+    import torch
+
+    import repro_torch.models.moe as moem
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.collectives import local_of
+    from repro_torch.kernels.instances import ROUNDED_ULPS, rounded_agreement
+    from torch.distributed.tensor import Replicate
+
+    cfg = get_config(MOE)
+    params, x = captured
+    E, k = cfg.n_experts, cfg.moe_top_k
+    with torch.inference_mode():
+        with moem.route_log() as log:
+            y, _ = moem.apply_moe_sharded(params, x, k, E, mesh, schedule=cfg.moe_schedule)
+        (entry,) = log
+        whole = {n: local_of(p, [Replicate()] * p.device_mesh.ndim)   # (1, 1): whole
+                 for n, p in params.items()}
+        T = x.shape[0] * x.shape[1]
+        idx, w, _ = moem.router_probs(whole["router"], x.reshape(T, -1), k)
+        onehot = torch.nn.functional.one_hot(idx.reshape(-1), E)
+        slot = torch.sum(torch.cumsum(onehot, dim=0) * onehot, dim=-1) - 1
+        keep = slot < entry["cap"]
+        same = torch.equal(keep, entry["keep"]) and torch.equal(slot, entry["slot"])
+        gated = (w.reshape(-1) * keep).reshape(T, k)
+        combine = torch.zeros((T, E), dtype=x.dtype, device=x.device).scatter(-1, idx, gated)
+        mask = (combine != 0).to(x.dtype)
+        xe = x.reshape(1, T, -1) * mask.t()[..., None]
+        ye = moem._expert_ffn(whole["w_gate"], whole["w_up"], whole["w_down"], xe)
+        want = torch.einsum("etd,te->td", ye, combine).reshape(x.shape)
+        r = rounded_agreement(y, want)
+        ms = cold_ms({"sharded": lambda: moem.apply_moe_sharded(
+                          params, x, k, E, mesh, schedule=cfg.moe_schedule),
+                      "dense": lambda: moem.apply_moe_dense(whole, x, k, E)}, n=10)
+    dropped = 1.0 - float(keep.float().mean())
+    if not same or r["ulps"] > ROUNDED_ULPS:
+        raise RuntimeError(f"mesh moe route: kept pairs equal {same}; {r['ulps']:.2f} bf16 "
+                           f"ulps from the dense dispatch with the dropped gates zeroed "
+                           f"(limit {ROUNDED_ULPS})")
+    report["route"] = {"schedule": entry["schedule"], "cap": entry["cap"], "tokens": T,
+                       "drop_share": dropped, "ulps": r["ulps"], "sharded_ms": ms["sharded"],
+                       "dense_ms": ms["dense"]}
+    print(f"[mesh-moe] layer 0's dispatch ({entry['schedule']}, T {T}, cap {entry['cap']}, "
+          f"{100 * dropped:.2f} % of pairs dropped): kept pairs and slots equal the cumulative "
+          f"count's; output {r['ulps']:.2f} bf16 ulps of its row's scale from the dense "
+          f"dispatch with the dropped gates zeroed (limit {ROUNDED_ULPS}); cold L2 "
+          f"{ms['sharded']:.3f} ms, the dense dispatch {ms['dense']:.3f} ms")
+
+
+def moe_mesh_serve(report, mesh, kernels, entries) -> None:
+    """Phase 10: full-width granite (``moe_impl="sharded"``) built with the
+    (1, 1) NCCL mesh serves phase 6's traffic through ``serve.generate``:
+    the launch counts around the run (24 flash per prefill, all
+    ``tensor_core``, none per decode step), prefill and decode times and
+    peak beside phase 7's granite, the resolved schedule, cap and drop
+    share per layer; then the route check and the flash kernel's entry."""
+    import torch
+
+    import repro_torch.models.attention as attn
+    import repro_torch.models.moe as moem
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels import conv1d as tconv
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import ssd as tssd
+    from repro_torch.serve import generate
+    from repro_torch.sharding import shard_batch
+
+    cfg = get_config(MOE)
+    rec = report.setdefault("mesh_moe", {})
+    before = report["serving"][MOE]["serve"]
+    model = moe_model_on_mesh(mesh)
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=SERVE["prompt_len"],
+                                    global_batch=SERVE["batch"]))
+    tokens = torch.from_numpy(pipe.batch_at(0)["tokens"]).long().cuda()
+    batch = shard_batch({"tokens": tokens}, mesh)
+    generate(model, batch, 2)                             # warm-up, outside the count
+    torch.cuda.synchronize()
+    captured, real = {}, (moem.apply_moe_sharded, attn.flash_attention)
+
+    def capture_moe(params, x, *args, **kwargs):
+        captured.setdefault("moe", (params, x.detach().clone()))
+        return real[0](params, x, *args, **kwargs)
+
+    def capture_flash(q, k, v, causal=True):
+        captured.setdefault("flash", (q, k, v, causal))
+        return real[1](q, k, v, causal=causal)
+
+    torch.cuda.reset_peak_memory_stats()
+    for mod in (tconv, tssd, tfa):
+        mod.reset_launch_counts()
+    moem.apply_moe_sharded, attn.flash_attention = capture_moe, capture_flash
+    times = {}
+    try:
+        with moem.route_log() as log:
+            out = generate(model, batch, SERVE["gen"], times=times,
+                           max_len=SERVE["prompt_len"] + SERVE["gen"])
+        torch.cuda.synchronize()
+    finally:
+        moem.apply_moe_sharded, attn.flash_attention = real
+    counts = {k: n for k, n in {**tconv.launch_counts(), **tssd.launch_counts(),
+                                **tfa.launch_counts(), **tfa.instance_counts()}.items() if n}
+    want = {"flash_attention": cfg.n_layers, "flash_attention/tensor_core": cfg.n_layers}
+    if counts != want:
+        raise RuntimeError(f"mesh moe serve: launches {counts}, expected {want}")
+    out = out.cpu().numpy()
+    if out.shape != (SERVE["batch"], SERVE["gen"]) or out.min() < 0 or out.max() >= cfg.vocab:
+        raise RuntimeError(f"mesh moe serve: tokens {out.shape} out of range")
+    prefill_log, decode_log = log[:cfg.n_layers], log[cfg.n_layers:]
+    if len(decode_log) != cfg.n_layers * (SERVE["gen"] - 1) or \
+            {e["schedule"] for e in log} != {"2d_dshard"}:
+        raise RuntimeError(f"mesh moe serve: {len(log)} dispatches, schedules "
+                           f"{ {e['schedule'] for e in log} }")
+    per_layer = [drop_share([e]) for e in prefill_log]
+    decode_ms = 1e3 * times["decode_s"] / (SERVE["gen"] - 1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rec["serve"] = {"prefill_ms": 1e3 * times["prefill_s"], "decode_ms_per_token": decode_ms,
+                    "peak_gib": peak, "schedule": "2d_dshard", "cap": prefill_log[0]["cap"],
+                    "prefill_drop_share_per_layer": per_layer,
+                    "decode_drop_share": drop_share(decode_log), "launches": counts,
+                    "phase7": {k: before[k] for k in ("prefill_ms", "decode_ms_per_token",
+                                                       "peak_gib")}}
+    print(f"[mesh-moe] {MOE} (moe_impl='sharded', schedule auto -> 2d_dshard) on the (1, 1) "
+          f"mesh at full width serves {SERVE['batch']} x {SERVE['prompt_len']}-token prompts "
+          f"x {SERVE['gen']} tokens: prefill {1e3 * times['prefill_s']:.1f} ms (phase 7, dense "
+          f"dispatch: {before['prefill_ms']:.1f}), decode {decode_ms:.2f} ms/token (phase 7 "
+          f"{before['decode_ms_per_token']:.2f}), peak {peak:.2f} GiB (phase 7 "
+          f"{before['peak_gib']:.2f}); flash {counts['flash_attention']} per prefill, all "
+          f"tensor_core, none per decode step")
+    print(f"[mesh-moe] prefill cap {prefill_log[0]['cap']} slots per expert (T "
+          f"{prefill_log[0]['tokens']}); pairs dropped per layer (%): "
+          + " ".join(f"{100 * d:.2f}" for d in per_layer)
+          + f"; decode steps (cap {decode_log[0]['cap']}): "
+          f"{100 * drop_share(decode_log):.3f} %")
+    rec["prefill_split"] = prefill_split(model, batch, f"{MOE} mesh",
+                                         moe_fn="apply_moe_sharded")
+    del model, log
+    torch.cuda.empty_cache()
+    moe_route_check(rec, mesh, captured.pop("moe"))
+    layer0_flash(kernels["flash"], captured.pop("flash"), counts, rec, entries, f"{MOE} mesh")
+    captured.clear()
+    torch.cuda.empty_cache()
+
+
+def moe_mesh_train(report, mesh) -> None:
+    """Phase 10: full-width granite (``moe_impl="sharded"``) trained on the
+    (1, 1) mesh through ``launch.train``'s mesh branch for phase 8's steps
+    at its lr: finite losses and gradients, exactly 48 flash launches per
+    step, the drop share per step, step ms, tokens/s and peak beside phase
+    8's granite (the dense dispatch, without a mesh), one warm step
+    traced with a ``moe`` family."""
+    import numpy as np
+    import torch
+
+    import repro_torch.models.moe as moem
+    import repro_torch.train.step as tstep
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels import conv1d as tconv
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import ssd as tssd
+    from repro_torch.launch import train as ttrain
+    from torch.distributed.tensor import DTensor
+
+    cfg, dev = get_config(MOE), torch.device("cuda")
+    before = report["training"][MOE]
+    per_step = 2 * flash_per_forward(cfg)
+    rec = report.setdefault("mesh_moe", {}).setdefault("train", {})
+    grads_ok, real = [], tstep.adamw_update
+
+    def adamw(cfg_, grads, state, params, ndims=None):
+        grads_ok.append(all(bool(torch.isfinite(g.to_local() if isinstance(g, DTensor)
+                                                else g).all()) for g in grads.values()))
+        with torch.profiler.record_function("smoke::adamw_update"):
+            return real(cfg_, grads, state, params, ndims)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, state, step = ttrain.build(cfg, dev, TRAIN["lr"], TRAIN["steps"], mesh=mesh)
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN["seq"],
+                                    global_batch=TRAIN["batch"]))
+    for mod in (tconv, tssd, tfa):
+        mod.reset_launch_counts()
+    tstep.adamw_update = adamw
+    losses, step_s, drops = [], [], []
+    try:
+        for i in range(TRAIN["steps"]):
+            batch = ttrain.batch_at(pipe, i, cfg, dev, mesh)
+            t0 = time.time()
+            with moem.route_log() as log:
+                state, metrics = step(state, batch)
+                losses.append(float(metrics["loss"]))            # waits for the step
+            step_s.append(time.time() - t0)
+            drops.append(drop_share(log))
+        torch.cuda.synchronize()
+        counts = {k: n for k, n in {**tconv.launch_counts(), **tssd.launch_counts(),
+                                    **tfa.launch_counts(), **tfa.instance_counts()}.items()
+                  if n}
+        rec["split"], state, traced = train_split(
+            model, step, state, ttrain.batch_at(pipe, 0, cfg, dev, mesh), f"{MOE} mesh",
+            moe=True)
+    finally:
+        tstep.adamw_update = real
+    want = {"flash_attention": TRAIN["steps"] * per_step,
+            "flash_attention/tensor_core": TRAIN["steps"] * per_step}
+    if counts != want:
+        raise RuntimeError(f"mesh moe train: launches {counts}, expected {want}")
+    if traced != {k: n // TRAIN["steps"] for k, n in want.items()}:
+        raise RuntimeError(f"mesh moe train: the traced step launched {traced}")
+    if len(losses) != TRAIN["steps"] or not all(np.isfinite(losses)):
+        raise RuntimeError(f"mesh moe train: losses {losses}")
+    if len(grads_ok) != TRAIN["steps"] + 2 or not all(grads_ok):
+        raise RuntimeError(f"mesh moe train: a gradient is not finite ({grads_ok})")
+    step_ms = 1e3 * statistics.median(step_s[1:])
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    rec.update({"losses": losses, "drop_share_per_step": drops, "step_ms": step_ms,
+                "tokens_per_s": tokens / (step_ms / 1e3), "peak_gib": peak,
+                "launches_per_step": per_step, "phase8": {
+                    k: before[k] for k in ("step_ms", "tokens_per_s", "peak_gib", "losses")}})
+    print(f"[mesh-moe] {MOE} (moe_impl='sharded') trained on the (1, 1) mesh at full width, "
+          f"{TRAIN['steps']} steps of {TRAIN['batch']} x {TRAIN['seq']} tokens: step "
+          f"{step_ms:.1f} ms (phase 8, dense dispatch: {before['step_ms']:.1f}), "
+          f"{rec['tokens_per_s']:.0f} tokens/s (phase 8 {before['tokens_per_s']:.0f}), peak "
+          f"{peak:.2f} GiB (phase 8 {before['peak_gib']:.2f}); losses "
+          + " ".join(f"{x:.4f}" for x in losses) + " (phase 8 "
+          + " ".join(f"{x:.4f}" for x in before["losses"]) + "); pairs dropped per step (%): "
+          + " ".join(f"{100 * d:.2f}" for d in drops)
+          + f"; flash {per_step} per step, all tensor_core; every gradient finite")
+    del model, state, step
+
+
+def dryrun_phase(report) -> None:
+    """Phase 11: the dry run's cells, each in a subprocess of its own (a
+    fake process group cannot share a process with the NCCL one): per-rank
+    bytes, FLOPs and collectives; a cell that errors fails the smoke."""
+    out_dir = os.path.join(ROOT, "build", "smoke_dryrun")
+    rec = report.setdefault("dryrun", {})
+    for arch, shape, multi_pod in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+               "--shape", shape, "--force", "--out-dir", out_dir,
+               *(["--multi-pod"] if multi_pod else [])]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600,
+                             env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+        wall = time.perf_counter() - t0
+        mesh_tag = "2x16x16" if multi_pod else "16x16"
+        path = os.path.join(out_dir, mesh_tag, f"{arch}__{shape}.json")
+        if res.returncode != 0 or not os.path.exists(path):
+            raise RuntimeError(f"dry run {arch} x {shape} ({mesh_tag}): rc {res.returncode}\n"
+                               f"{res.stdout[-2000:]}\n{res.stderr[-2000:]}")
+        with open(path) as f:
+            cell = json.load(f)
+        if "error" in cell or "skipped" in cell:
+            raise RuntimeError(f"dry run {arch} x {shape} ({mesh_tag}): {cell}")
+        rec[f"{arch}/{shape}/{mesh_tag}"] = {**cell, "subprocess_s": wall}
+        mem = cell["memory"]
+        print(f"[dryrun] {arch} x {shape} on ({mesh_tag}) per rank: arguments "
+              f"{mem['argument_bytes'] / 1e9:.3f} GB (params {mem['param_bytes'] / 1e9:.3f}, "
+              f"moments {mem['opt_bytes'] / 1e9:.3f}, batch {mem['batch_bytes'] / 1e9:.3f}, "
+              f"cache {mem['cache_bytes'] / 1e9:.3f}); {cell['n_params']:,} parameters; "
+              f"matmul {cell['matmul_flops'] / 1e12:.3f} TFLOP (model FLOPs / ranks "
+              f"{cell['model_flops_per_device'] / 1e12:.3f}); collectives "
+              + ", ".join(f"{k} {n} ({cell['collective_bytes'][k] / 1e9:.3f} GB)"
+                          for k, n in cell["collective_count"].items() if n)
+              + f"; {cell['wall_s']:.1f} s in the cell, {wall:.1f} s with start-up")
+
+
+def mesh_path(report, kernels, entries) -> None:
+    """Phases 9 and 10: the mesh path at world size 1 over NCCL, then the
+    sharded MoE dispatch on the same group (its CPU reference first, on a
+    gloo group of its own)."""
     import torch
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_mesh
 
+    cpu_ref = moe_cpu_reference()
     torch.cuda.set_device(0)
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
                             rank=0, world_size=1)
@@ -1711,6 +2133,10 @@ def mesh_path(report) -> None:
         torch.cuda.empty_cache()
         mesh_ring(report, mesh)
         mesh_checkpoint(report, mesh)
+        torch.cuda.empty_cache()
+        moe_card_vs_cpu(report, mesh, cpu_ref)
+        moe_mesh_serve(report, mesh, kernels, entries)
+        moe_mesh_train(report, mesh)
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
@@ -2005,10 +2431,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     training_path(serving_kernels, report, entries)
 
-    # -- 9. the mesh path at world size 1 over NCCL ------------------------------
-    mesh_path(report)
+    # -- 9-10. the mesh path at world size 1 over NCCL, and the sharded MoE
+    #          dispatch on it --------------------------------------------------
+    mesh_path(report, serving_kernels, entries)
 
-    # -- 10. records -----------------------------------------------------------
+    # -- 11. the dry run's cells, on the host --------------------------------------
+    dryrun_phase(report)
+
+    # -- 12. records -----------------------------------------------------------
     report["card"] = card
     report["seconds"] = time.perf_counter() - t_start
     os.makedirs(os.path.dirname(REPORT), exist_ok=True)

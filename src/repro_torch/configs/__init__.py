@@ -3,6 +3,7 @@ from .base import (  # noqa: F401
     ModelConfig,
     ShapeSpec,
     all_configs,
+    cell_applicable,
     get_config,
     reduced,
     register,

@@ -3,13 +3,14 @@
 Each architecture file registers one :class:`ModelConfig` with the exact
 published hyperparameters; ``reduced()`` derives the small same-family
 config used by CPU tests; ``SHAPES`` are the reference's dry-run input
-shapes, which ``models.accounting.model_flops`` takes.
+shapes, which ``models.accounting.model_flops`` and ``launch.dryrun``
+take, and ``cell_applicable`` says which (arch, shape) cells run.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +67,11 @@ class ModelConfig:
     def padded_vocab(self) -> int:
         m = max(self.pad_vocab_multiple, 1)
         return -(-self.vocab // m) * m
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """True when 500k-token decode is feasible (SSM/hybrid state)."""
+        return self.family in ("ssm", "hybrid")
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -138,3 +144,12 @@ SHAPES: Dict[str, ShapeSpec] = {
     "decode_32k": ShapeSpec("decode_32k", "decode", 32768, 128),
     "long_500k": ShapeSpec("long_500k", "decode", 524288, 1),
 }
+
+
+def cell_applicable(cfg: ModelConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """Whether (arch, shape) is a valid dry-run cell, and why not if not
+    (reference ``src/repro/configs/base.py:155-160``)."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, ("pure full-attention arch: 512k dense-attention decode "
+                       "is out of scope per assignment (sub-quadratic only)")
+    return True, ""

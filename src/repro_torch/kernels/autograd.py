@@ -9,6 +9,11 @@ kernel's plain version recomputed on the saved inputs, the counterpart of
 ``jax.grad`` through the oracle.  The plain version never stands in for
 the kernel in the forward, and the backward launches no kernel, so a
 kernel's launch count moves once per forward call.
+
+:data:`PLAIN_DEVICES` are the device types whose tensors take a kernel's
+plain version at its entry point: the CPU, and ``meta``, where the plain
+version gives the shapes the dry run needs (``launch.dryrun``).  A tensor
+on the card launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -16,6 +21,8 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+
+PLAIN_DEVICES = ("cpu", "meta")
 
 
 class PlainGrad(torch.autograd.Function):

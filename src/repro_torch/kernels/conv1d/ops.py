@@ -22,7 +22,7 @@ from typing import Dict, Iterable, List, Tuple
 import torch
 
 from repro_torch.build import build_library
-from ..autograd import with_plain_grad
+from ..autograd import PLAIN_DEVICES, with_plain_grad
 from . import ref as conv_ref
 from .conv1d import MODES, Conv1dKernel, cuda_source, make_spec
 
@@ -61,12 +61,13 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                   mode: str = "shuffle", activation: bool = True) -> torch.Tensor:
     """x: (B, L, C); w: (W, C); b: (C,).  Returns (B, L, C) in x's dtype.
 
-    On the CPU the plain version runs; on the card the (mode, W) kernel,
+    On the CPU (and on ``meta``, shapes only) the plain version runs; on
+    the card the (mode, W) kernel,
     differentiable through its plain version.
     """
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return conv_ref.causal_conv1d(x, w, b, activation=activation)
     (kernel,) = build_kernels([(mode, w.shape[0])])
     return with_plain_grad(lambda *a: kernel(*a, activation=activation),

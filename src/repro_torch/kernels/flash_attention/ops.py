@@ -7,7 +7,8 @@ is (B, Sq, H, Dh) in q's dtype, and a non-causal call whose Sk is ragged
 against the key tile is refused (the reference asserts
 ``Sk % block_k == 0`` there; the port's key tile is :data:`KEY_TILE`).
 The reference pads Sq and Sk to its blocks; the kernel masks them
-instead.  A tensor on the CPU takes the plain version (:mod:`.ref`); a
+instead.  A tensor on the CPU takes the plain version (:mod:`.ref`), and
+a ``meta`` tensor its shapes (the dry run's); a
 tensor on the card launches the kernel, built at first use, or raises:
 its bf16 tensor-core instance or its float32-arithmetic one, as
 :func:`select_instance` says.  On inputs that need a gradient the kernel
@@ -26,7 +27,7 @@ from typing import Optional
 import torch
 
 from repro_torch.build import Library, build_library
-from ..autograd import with_plain_grad
+from ..autograd import PLAIN_DEVICES, with_plain_grad
 from ..instances import InstanceCounts, tma_ready
 from . import ref as attn_ref
 
@@ -174,7 +175,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, Sq, H, Dh); k, v: (B, Sk, KV, Dh); H % KV == 0.
     Returns (B, Sq, H, Dh) in q's dtype; on the card differentiable
     through the plain version."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         check_contract(q, k, v, causal)
         return attn_ref.attention_ref(q, k, v, causal=causal)
     kernel = build_kernel()

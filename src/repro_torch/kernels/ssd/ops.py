@@ -23,7 +23,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.build import Library, build_library
-from ..autograd import with_plain_grad
+from ..autograd import PLAIN_DEVICES, with_plain_grad
 from ..instances import InstanceCounts, tma_ready
 from . import ref as ssd_ref
 
@@ -189,7 +189,7 @@ def ssd(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     Returns (y (B, L, H, P), final_state (B, H, N, P) float32); on the card
     differentiable through the plain version.
     """
-    if xh.device.type == "cpu":
+    if xh.device.type in PLAIN_DEVICES:
         return ssd_ref.ssd_chunked(xh, dt, A, Bm, Cm, chunk)
     kernel = build_kernel()
     return with_plain_grad(lambda *a: kernel(*a, chunk),

@@ -46,8 +46,14 @@ function:
   there its gradients;
 * ``attn_impl="ring"`` runs ``distributed.ring_attention`` over the
   ``model`` axis where the sequence divides it;
-* serving (``prefill``, ``decode_step``) on a mesh is not ported and
-  raises.
+* ``moe_impl="sharded"`` runs ``moe.apply_moe_sharded`` on any mesh, one
+  device included, as the reference does: its expert weights (and
+  router) stay out of the block's gather, and the dispatch takes its own
+  shards of them;
+* serving (``prefill``, ``decode_step``) takes the global batch as
+  DTensors, or plain tensors of this rank's shard, and serves this
+  rank's batch shard through the same gathered blocks; the logits and
+  every cache hold this rank's rows, and decode takes and writes them.
 
 Without a mesh every path is the one-device path, unchanged.
 """
@@ -64,8 +70,8 @@ from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.collectives import batch_sum, gather_param
-from repro_torch.sharding.rules import constrain_batch
+from repro_torch.distributed.collectives import batch_sum, gather_param, local_of
+from repro_torch.sharding.rules import constrain_batch, placements, shard_batch_spec
 from . import attention as attn
 from . import mamba2 as m2
 from . import mlp as mlpm
@@ -105,14 +111,17 @@ def _generator(dev: torch.device,
 
 
 @contextlib.contextmanager
-def _gathered(mesh, *modules: nn.Module):
+def _gathered(mesh, *modules: nn.Module, keep: tuple = ()):
     """For the duration, each DTensor parameter of ``modules`` gathered
-    whole as a plain tensor in its module's place (ZeRO-3); nothing
-    without a mesh."""
+    whole as a plain tensor in its module's place (ZeRO-3), except those
+    of the modules in ``keep``; nothing without a mesh."""
     swapped = []
     if mesh is not None:
+        kept = {id(sub) for mod in keep for sub in mod.modules()}
         for mod in modules:
             for sub in mod.modules():
+                if id(sub) in kept:
+                    continue
                 swapped += [(sub, name, p) for name, p in sub._parameters.items()
                             if isinstance(p, DTensor)]
         for sub, name, p in swapped:
@@ -125,17 +134,26 @@ def _gathered(mesh, *modules: nn.Module):
 
 
 def _serving(fn):
-    """Run ``fn`` under ``torch.inference_mode``; serving on a mesh is not
-    ported and raises."""
+    """Run ``fn`` under ``torch.inference_mode``, with the model's
+    embedding and final norm gathered on a mesh."""
     @functools.wraps(fn)
     def wrapper(self, *args, **kwargs):
-        if self.mesh is not None:
-            raise NotImplementedError(f"{type(self).__name__}.{fn.__name__} on a mesh: "
-                                      f"serving across ranks is not ported; the mesh "
-                                      f"path trains (hidden, loss)")
-        with torch.inference_mode():
+        with torch.inference_mode(), _gathered(self.mesh, self.embed, self.ln_f):
             return fn(self, *args, **kwargs)
     return wrapper
+
+
+def _batch_shard(v: DTensor, mesh) -> torch.Tensor:
+    """This rank's shard of a global-batch DTensor, over (pod, data)."""
+    return local_of(v, placements(shard_batch_spec(mesh, v.shape), mesh))
+
+
+def _sharded_moe(blk: nn.Module, cfg: ModelConfig, mesh) -> tuple:
+    """The block's MoE, whose parameters the sharded dispatch shards
+    itself (:func:`_apply_ffn`), as a ``keep`` for :func:`_gathered`."""
+    if mesh is not None and cfg.moe_impl == "sharded" and hasattr(blk, "moe"):
+        return (blk.moe,)
+    return ()
 
 
 def _pad_kv(kv: torch.Tensor, max_len: Optional[int]) -> torch.Tensor:
@@ -246,17 +264,15 @@ class TBlock(Block):
 
 
 def _apply_ffn(p: Block, x: torch.Tensor, cfg: ModelConfig, mesh=None):
-    """(y, aux): the MoE's dense dispatch and its load-balancing loss, or
-    the MLP and None.  ``moe_impl="sharded"`` runs the dense dispatch
-    without a mesh (as the reference does) and on a one-device mesh; on a
-    larger mesh it raises, since the sharded dispatch, whose capacity
-    drops make another function, is not ported yet."""
+    """(y, aux): the MoE and its load-balancing loss, or the MLP and None.
+    ``moe_impl="sharded"`` on a mesh, one device included, runs the
+    sharded dispatch, whose capacity drops make another function than the
+    dense one (reference ``src/repro/models/lm.py:131-141``); without a
+    mesh, or with ``moe_impl="dense"``, the dense dispatch runs."""
     if cfg.n_experts:
-        if cfg.moe_impl == "sharded" and mesh is not None and mesh.size() > 1:
-            raise NotImplementedError(
-                f"{cfg.name}: moe_impl='sharded' on a mesh of {mesh.size()} devices "
-                f"needs the sharded MoE dispatch (ROADMAP Queue 1), not ported "
-                f"yet; moe_impl='dense' trains on a mesh")
+        if cfg.moe_impl == "sharded" and mesh is not None:
+            return moem.apply_moe_sharded(p.moe, x, cfg.moe_top_k, cfg.n_experts, mesh,
+                                          schedule=cfg.moe_schedule)
         return moem.apply_moe_dense(p.moe, x, cfg.moe_top_k, cfg.n_experts, mesh)
     return mlpm.apply_mlp(p.mlp, x, cfg.mlp), None
 
@@ -277,23 +293,29 @@ def apply_tblock(p: TBlock, x: torch.Tensor, cfg: ModelConfig, mesh=None,
     return constrain_batch(x + y, mesh, global_batch), aux
 
 
-def prefill_tblock(p: TBlock, x: torch.Tensor, cfg: ModelConfig):
-    """x: (B, S, D) -> (x', (k, v)); the MoE's aux is dropped."""
-    h = apply_norm(p.ln1, x, cfg.norm, impl=cfg.norm_impl)
-    a, kv = attn.prefill_attention(p.attn, h, _attn_cfg(cfg), impl=cfg.attn_impl)
-    x = x + a
-    h = apply_norm(p.ln2, x, cfg.norm, impl=cfg.norm_impl)
-    return x + _apply_ffn(p, h, cfg)[0], kv
+def prefill_tblock(p: TBlock, x: torch.Tensor, cfg: ModelConfig, mesh=None):
+    """x: (B, S, D) -> (x', (k, v)); the MoE's aux is dropped.  On a mesh
+    x is this rank's batch shard and p's parameters are gathered (but a
+    sharded MoE's)."""
+    with _gathered(mesh, p, keep=_sharded_moe(p, cfg, mesh)):
+        x = constrain_batch(x, mesh)
+        h = apply_norm(p.ln1, x, cfg.norm, impl=cfg.norm_impl)
+        a, kv = attn.prefill_attention(p.attn, h, _attn_cfg(cfg), impl=cfg.attn_impl,
+                                       mesh=mesh)
+        x = x + a
+        h = apply_norm(p.ln2, x, cfg.norm, impl=cfg.norm_impl)
+        return x + _apply_ffn(p, h, cfg, mesh)[0], kv
 
 
 def decode_tblock(p: TBlock, x: torch.Tensor, kv_cache, pos: torch.Tensor,
-                  cfg: ModelConfig):
+                  cfg: ModelConfig, mesh=None):
     """x: (B, 1, D); the k/v cache is written at ``pos`` in place."""
-    h = apply_norm(p.ln1, x, cfg.norm, impl=cfg.norm_impl)
-    a, kv_cache = attn.decode_attention(p.attn, h, kv_cache, pos, _attn_cfg(cfg))
-    x = x + a
-    h = apply_norm(p.ln2, x, cfg.norm, impl=cfg.norm_impl)
-    return x + _apply_ffn(p, h, cfg)[0], kv_cache
+    with _gathered(mesh, p, keep=_sharded_moe(p, cfg, mesh)):
+        h = apply_norm(p.ln1, x, cfg.norm, impl=cfg.norm_impl)
+        a, kv_cache = attn.decode_attention(p.attn, h, kv_cache, pos, _attn_cfg(cfg))
+        x = x + a
+        h = apply_norm(p.ln2, x, cfg.norm, impl=cfg.norm_impl)
+        return x + _apply_ffn(p, h, cfg, mesh)[0], kv_cache
 
 
 # ---------------------------------------------------------------------------
@@ -351,8 +373,9 @@ class Model(nn.Module):
         return fn(*args)
 
     def _tblock(self, blk: nn.Module, x: torch.Tensor, gb: Optional[int]):
-        """A transformer block with its parameters gathered on a mesh."""
-        with _gathered(self.mesh, blk):
+        """A transformer block with its parameters gathered on a mesh (but
+        a sharded MoE's)."""
+        with _gathered(self.mesh, blk, keep=_sharded_moe(blk, self.cfg, self.mesh)):
             return apply_tblock(blk, x, self.cfg, self.mesh, gb)
 
     def _backbone(self, x: torch.Tensor, batch: Dict[str, torch.Tensor],
@@ -377,8 +400,17 @@ class Model(nn.Module):
                 raise TypeError(f"on a mesh batch[{k!r}] must be a DTensor of the "
                                 f"global batch (sharding.shard_batch), not a "
                                 f"{type(v).__name__}")
-            out[k] = constrain_batch(v, self.mesh).to_local()
+            out[k] = _batch_shard(v, self.mesh)
         return out, batch["tokens"].shape[0]
+
+    def _serve_batch(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """On a mesh, this rank's shard of each entry: a DTensor of the
+        global batch as its local shard over (pod, data), a plain tensor
+        as it is (this rank's rows already)."""
+        if self.mesh is None:
+            return batch
+        return {k: _batch_shard(v, self.mesh) if isinstance(v, DTensor) else v
+                for k, v in batch.items()}
 
     def _hidden(self, batch: Dict[str, torch.Tensor], gb: Optional[int]):
         cfg = self.cfg
@@ -417,11 +449,11 @@ class Model(nn.Module):
                 max_len: Optional[int] = None):
         """batch["tokens"]: (B, S) -> (last logits (B, vocab), cache); the
         k/v caches (L, B, S, KV, Dh) are zero-padded along S to ``max_len``."""
-        tokens = batch["tokens"].to(self.device)
+        tokens = self._serve_batch(batch)["tokens"].to(self.device)
         x = self.embed["table"][tokens]
         ks, vs = [], []
         for blk in self.blocks:
-            x, (k, v) = prefill_tblock(blk, x, self.cfg)
+            x, (k, v) = prefill_tblock(blk, x, self.cfg, self.mesh)
             ks.append(k)
             vs.append(v)
         B, S = tokens.shape
@@ -433,10 +465,12 @@ class Model(nn.Module):
     def decode_step(self, tokens: torch.Tensor, cache):
         """tokens: (B,) -> (logits (B, vocab), new cache).  The k/v caches
         are written at ``pos`` in place and returned as they are."""
+        tokens = self._serve_batch({"tokens": tokens})["tokens"]
         x = self.embed["table"][tokens.to(self.device)][:, None]     # (B, 1, D)
         pos = cache["pos"]
         for i, blk in enumerate(self.blocks):
-            x, _ = decode_tblock(blk, x, (cache["k"][i], cache["v"][i]), pos, self.cfg)
+            x, _ = decode_tblock(blk, x, (cache["k"][i], cache["v"][i]), pos, self.cfg,
+                                 self.mesh)
         return self._final(x[:, 0]), {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
 
 
@@ -529,13 +563,15 @@ class VLMModel(Model):
         """batch["tokens"]: (B, S), batch["media"]: (B, M, D) -> (last logits
         (B, vocab), cache); the k/v caches (n_super, n_self, B, S, KV, Dh)
         are zero-padded along S to ``max_len``."""
+        batch = self._serve_batch(batch)
         tokens = batch["tokens"].to(self.device)
         media = batch["media"].to(self.device, self.dtype)
         x = self.embed["table"][tokens]
         ks, vs = [], []
         for s in range(self.n_super):
             for j in range(self.n_self):
-                x, (k, v) = prefill_tblock(self.blocks[s * self.n_self + j], x, self.cfg)
+                x, (k, v) = prefill_tblock(self.blocks[s * self.n_self + j], x, self.cfg,
+                                           self.mesh)
                 ks.append(k)
                 vs.append(v)
             x = self._apply_cross(self.cross[s], x, media)
@@ -551,12 +587,14 @@ class VLMModel(Model):
     def decode_step(self, tokens: torch.Tensor, cache):
         """tokens: (B,) -> (logits (B, vocab), new cache); the k/v caches are
         written at ``pos`` in place."""
+        tokens = self._serve_batch({"tokens": tokens})["tokens"]
         x = self.embed["table"][tokens.to(self.device)][:, None]     # (B, 1, D)
         pos = cache["pos"]
         for s in range(self.n_super):
             for j in range(self.n_self):
                 x, _ = decode_tblock(self.blocks[s * self.n_self + j], x,
-                                     (cache["k"][s, j], cache["v"][s, j]), pos, self.cfg)
+                                     (cache["k"][s, j], cache["v"][s, j]), pos, self.cfg,
+                                     self.mesh)
             x = self._apply_cross(self.cross[s], x, cache["media"])
         return self._final(x[:, 0]), {"k": cache["k"], "v": cache["v"],
                                       "media": cache["media"], "pos": pos + 1}
@@ -605,19 +643,23 @@ class SSMModel(Model):
                 "pos": torch.zeros(batch_size, dtype=torch.int32, device=dev)}
 
     def _mamba_prefill(self, i: int, x: torch.Tensor, convs: list, ssms: list):
-        """Block i over the full sequence; appends its conv and SSM states."""
-        cfg, blk = self.cfg, self.blocks[i]
-        h = apply_norm(blk.ln, x, cfg.norm, impl=cfg.norm_impl)
-        y, (cs, ss) = blk.mamba(h, return_state=True)
+        """Block i over the full sequence (its parameters gathered on a
+        mesh); appends its conv and SSM states."""
+        cfg, blk, mesh = self.cfg, self.blocks[i], self.mesh
+        with _gathered(mesh, blk):
+            x = constrain_batch(x, mesh)
+            h = apply_norm(blk.ln, x, cfg.norm, impl=cfg.norm_impl)
+            y, (cs, ss) = blk.mamba(h, return_state=True)
         convs.append(cs)
         ssms.append(ss)
-        return x + y
+        return constrain_batch(x + y, mesh)
 
     def _mamba_decode(self, i: int, x: torch.Tensor, cache, convs: list, ssms: list):
         """Block i for one token; appends its new conv and SSM states."""
         cfg, blk = self.cfg, self.blocks[i]
-        h = apply_norm(blk.ln, x, cfg.norm, impl=cfg.norm_impl)
-        y, (cs, ss) = blk.mamba.decode_step(h, (cache["conv"][i], cache["ssm"][i]))
+        with _gathered(self.mesh, blk):
+            h = apply_norm(blk.ln, x, cfg.norm, impl=cfg.norm_impl)
+            y, (cs, ss) = blk.mamba.decode_step(h, (cache["conv"][i], cache["ssm"][i]))
         convs.append(cs)
         ssms.append(ss)
         return x + y
@@ -626,7 +668,7 @@ class SSMModel(Model):
     def prefill(self, batch: Dict[str, torch.Tensor],
                 max_len: Optional[int] = None):
         """batch["tokens"]: (B, S) -> (last logits (B, vocab), cache)."""
-        tokens = batch["tokens"].to(self.device)
+        tokens = self._serve_batch(batch)["tokens"].to(self.device)
         x = self.embed["table"][tokens]
         convs, ssms = [], []
         for i in range(self.cfg.n_layers):
@@ -639,6 +681,7 @@ class SSMModel(Model):
     @_serving
     def decode_step(self, tokens: torch.Tensor, cache):
         """tokens: (B,) -> (logits (B, vocab), new cache)."""
+        tokens = self._serve_batch({"tokens": tokens})["tokens"]
         x = self.embed["table"][tokens.to(self.device)]           # (B, D)
         convs, ssms = [], []
         for i in range(self.cfg.n_layers):
@@ -699,11 +742,11 @@ class HybridModel(SSMModel):
         """batch["tokens"]: (B, S) -> (last logits (B, vocab), cache); the
         k/v caches are zero-padded along S to ``max_len``."""
         cfg, ne = self.cfg, self.cfg.attn_every
-        tokens = batch["tokens"].to(self.device)
+        tokens = self._serve_batch(batch)["tokens"].to(self.device)
         x = self.embed["table"][tokens]
         convs, ssms, ks, vs = [], [], [], []
         for s in range(self.n_super):
-            x, (k, v) = prefill_tblock(self.shared_attn, x, cfg)
+            x, (k, v) = prefill_tblock(self.shared_attn, x, cfg, self.mesh)
             ks.append(k)
             vs.append(v)
             for j in range(ne):
@@ -722,12 +765,14 @@ class HybridModel(SSMModel):
         """tokens: (B,) -> (logits (B, vocab), new cache).  The k/v caches
         are written at ``pos`` in place and returned as they are."""
         cfg, ne = self.cfg, self.cfg.attn_every
+        tokens = self._serve_batch({"tokens": tokens})["tokens"]
         x = self.embed["table"][tokens.to(self.device)]           # (B, D)
         pos = cache["pos"]
         convs, ssms = [], []
         for s in range(self.n_super):
             y, _ = decode_tblock(self.shared_attn, x[:, None],
-                                 (cache["attn_k"][s], cache["attn_v"][s]), pos, cfg)
+                                 (cache["attn_k"][s], cache["attn_v"][s]), pos, cfg,
+                                 self.mesh)
             x = y[:, 0]
             for j in range(ne):
                 x = self._mamba_decode(s * ne + j, x, cache, convs, ssms)
@@ -822,16 +867,19 @@ class EncDecModel(Model):
         """batch["tokens"]: (B, S), batch["frames"]: (B, F, D) -> (last
         logits (B, vocab), cache); the k/v caches (L, B, S, KV, Dh) are
         zero-padded along S to ``max_len``; the cache keeps the memory."""
-        cfg = self.cfg
+        cfg, mesh = self.cfg, self.mesh
+        batch = self._serve_batch(batch)
         tokens = batch["tokens"].to(self.device)
         memory = self.encode(batch["frames"])
         x = self.embed["table"][tokens]
         ks, vs = [], []
         for blk in self.blocks:
-            h = apply_norm(blk.ln1, x, cfg.norm, impl=cfg.norm_impl)
-            a, (k, v) = attn.prefill_attention(blk.attn, h, _attn_cfg(cfg),
-                                               impl=cfg.attn_impl)
-            x = self._cross_mlp(blk, x + a, memory)
+            with _gathered(mesh, blk):
+                x = constrain_batch(x, mesh)
+                h = apply_norm(blk.ln1, x, cfg.norm, impl=cfg.norm_impl)
+                a, (k, v) = attn.prefill_attention(blk.attn, h, _attn_cfg(cfg),
+                                                   impl=cfg.attn_impl, mesh=mesh)
+                x = self._cross_mlp(blk, x + a, memory)
             ks.append(k)
             vs.append(v)
         B, S = tokens.shape
@@ -845,13 +893,15 @@ class EncDecModel(Model):
         """tokens: (B,) -> (logits (B, vocab), new cache); the k/v caches are
         written at ``pos`` in place; the encoder does not run."""
         cfg = self.cfg
+        tokens = self._serve_batch({"tokens": tokens})["tokens"]
         x = self.embed["table"][tokens.to(self.device)][:, None]     # (B, 1, D)
         pos, memory = cache["pos"], cache["memory"]
         for i, blk in enumerate(self.blocks):
-            h = apply_norm(blk.ln1, x, cfg.norm, impl=cfg.norm_impl)
-            a, _ = attn.decode_attention(blk.attn, h, (cache["k"][i], cache["v"][i]),
-                                         pos, _attn_cfg(cfg))
-            x = self._cross_mlp(blk, x + a, memory)
+            with _gathered(self.mesh, blk):
+                h = apply_norm(blk.ln1, x, cfg.norm, impl=cfg.norm_impl)
+                a, _ = attn.decode_attention(blk.attn, h, (cache["k"][i], cache["v"][i]),
+                                             pos, _attn_cfg(cfg))
+                x = self._cross_mlp(blk, x + a, memory)
         return self._final(x[:, 0]), {"k": cache["k"], "v": cache["v"],
                                       "memory": memory, "pos": pos + 1}
 

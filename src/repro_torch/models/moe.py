@@ -1,5 +1,5 @@
 """Mixture-of-Experts FFN: the top-k router, the dense dispatch and the
-sharded dispatch's schedule choice (mirrors ``src/repro/models/moe.py:43-131``).
+sharded dispatch with its three schedules (mirrors ``src/repro/models/moe.py``).
 
 ``apply_moe_dense`` is the reference's semantics: exact top-k of the
 softmax, renormalised, no capacity and no drops; every expert runs over
@@ -7,26 +7,40 @@ all tokens with the unchosen ones masked to zero, and the combine weighs
 each expert's output by its gate weight.  That is E / k times the expert
 work the chosen pairs need (4x for Granite's top-8 of 32).  The expert
 products are plain batched matmuls, as the reference leaves its einsums
-to XLA.  The sharded dispatch across cards (``apply_moe_sharded``) is
-not ported yet; a config asking for it runs this one without a mesh, as
-the reference does, and raises on a mesh of more than one device
-(``models.lm._apply_ffn``).  ``choose_schedule``, which the sharding
-rules read, is.
+to XLA.  On a mesh its load-balancing loss is the reference's over the
+global batch: the token counts per expert are summed over the batch
+shards, and each rank's loss is its share, whose sum over the shards is
+the global loss (:func:`aux_load_balance_loss`).
 
-On a mesh the load-balancing loss is the reference's over the global
-batch: the token counts per expert are summed over the batch shards, and
-each rank's loss is its share, whose sum over the shards is the global
-loss (:func:`aux_load_balance_loss`).
+``apply_moe_sharded`` is the production dispatch on a mesh: each rank
+routes its own tokens, scatters the pairs each expert can take into an
+(E, cap, D) buffer with cap = max(4, ceil(capacity_factor k T / E)) from
+the rank's own T, drops the rest, sends every expert's slots to the rank
+that holds it (``all_to_all``), runs the experts and sends the results
+home.  Which pairs drop depends on each rank's T and on token order, so
+the ranks take the tokens the reference's ``shard_map`` gives them: the
+port's activations are batch shards over (pod, data), replicated over
+``model``, and each rank takes its ``model`` block of the sequence
+(``2d``, ``ep_tp``; the whole sequence where it does not divide, as in
+decode) or of D (``2d_dshard``), and gathers the output back.  The
+expert weights are never gathered whole: each schedule redistributes
+them to its own layout (:data:`LAYOUTS`) and keeps this rank's shard.
+Its load-balancing loss is the reference's: each shard's loss over its
+own tokens, averaged over the shards.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import contextlib
+import math
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from repro_torch.sharding.rules import mesh_axes
+from repro_torch.distributed import collectives as col
+from repro_torch.sharding.rules import BATCH_AXES, PartitionSpec, mesh_axes, placements
 from .common import Params, dense_init
 
 
@@ -121,3 +135,194 @@ def choose_schedule(n_experts: int, d_model: int, d_ff: int, mesh,
     if d_ff < d_model and d_model % tp == 0:
         return "2d_dshard"
     return "2d"
+
+
+# (w_gate / w_up, w_down, router) per schedule: the mesh axis that splits
+# each dimension (the reference's shard_map in_specs, :214-219, :290-296,
+# :372-378); every other axis replicates the weight
+LAYOUTS: Dict[str, Dict[str, PartitionSpec]] = {
+    "2d": {"w_gate": PartitionSpec("data", None, "model"),
+           "w_up": PartitionSpec("data", None, "model"),
+           "w_down": PartitionSpec("data", "model", None),
+           "router": PartitionSpec()},
+    "ep_tp": {"w_gate": PartitionSpec("model", None, None),
+              "w_up": PartitionSpec("model", None, None),
+              "w_down": PartitionSpec("model", None, None),
+              "router": PartitionSpec()},
+    "2d_dshard": {"w_gate": PartitionSpec("data", "model", None),
+                  "w_up": PartitionSpec("data", "model", None),
+                  "w_down": PartitionSpec("data", None, "model"),
+                  "router": PartitionSpec("model", None)},
+}
+
+_ROUTE_LOG: Optional[List[dict]] = None
+
+
+@contextlib.contextmanager
+def route_log():
+    """For the duration, every sharded dispatch appends to the list
+    yielded a dict of its ``schedule``, ``cap``, local ``tokens`` T and,
+    per (token, choice) pair in the order t k + j, its ``expert``,
+    ``slot`` and ``keep`` (tensors on the dispatch's device)."""
+    global _ROUTE_LOG
+    prev, _ROUTE_LOG = _ROUTE_LOG, []
+    try:
+        yield _ROUTE_LOG
+    finally:
+        _ROUTE_LOG = prev
+
+
+def capacity(tokens: int, top_k: int, n_experts: int, capacity_factor: float) -> int:
+    """Slots per expert on a shard of ``tokens`` tokens (reference :182)."""
+    return max(4, math.ceil(capacity_factor * top_k * tokens / n_experts))
+
+
+def slots(flat_e: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """Each pair's slot on its expert: the count of earlier pairs (in the
+    order t k + j) that chose the same expert, the reference's cumulative
+    count (:184-185), here by a stable sort of the pairs by expert, which
+    keeps pair order within an expert.  (The count's (T k, E) one-hot is
+    1.6 GB per layer for Kimi's train_4k shard, and its scan along T k
+    runs one thread per expert.)"""
+    sorted_e, order = torch.sort(flat_e, stable=True)
+    start = torch.searchsorted(sorted_e, torch.arange(n_experts, device=flat_e.device))
+    place = torch.arange(flat_e.numel(), device=flat_e.device) - start[sorted_e]
+    return torch.empty_like(flat_e).scatter_(0, order, place)
+
+
+def _axis(mesh, name: str):
+    """(group, size) of mesh axis ``name``."""
+    return mesh.get_group(name), mesh.size(mesh.mesh_dim_names.index(name))
+
+
+def _local_weight(p: torch.Tensor, mesh, spec: PartitionSpec) -> torch.Tensor:
+    """This rank's shard of ``p`` in the layout ``spec``.  Its gradient is
+    that shard's on every axis ``spec`` splits and partial on every other,
+    where the ranks see other tokens (or, on the batch axes, shares of
+    the same ones).  A plain tensor is taken as the same whole weight on
+    every rank."""
+    if not isinstance(p, DTensor):
+        p = DTensor.from_local(p, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    want = placements(spec, mesh)
+    return col.local_of(p, want, [pl if isinstance(pl, Shard) else Partial() for pl in want])
+
+
+def _scatter(xf: torch.Tensor, dest: torch.Tensor, n_experts: int, cap: int,
+             top_k: int) -> torch.Tensor:
+    """The (E, cap, D) buffer: each kept pair's token added into zeros at
+    its slot ``dest`` = expert cap + slot (reference :187-189).  A dropped
+    pair's ``dest`` is a row past the buffer, cut off after: no pair
+    lands twice on a kept slot, so the sum is exact and its order moot."""
+    buf = xf.new_zeros((n_experts * cap + 1, xf.shape[-1]))
+    buf = buf.index_add(0, dest, xf.repeat_interleave(top_k, dim=0))
+    return buf[:-1].reshape(n_experts, cap, -1)
+
+
+def _combine(back: torch.Tensor, dest: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(T, D): each token's kept pairs' expert outputs weighted by their
+    gate weights and summed (reference :208-211); a dropped pair reads
+    the zero row past the buffer."""
+    rows = F.pad(back.reshape(-1, back.shape[-1]), (0, 0, 0, 1))
+    got = rows.index_select(0, dest) * w.reshape(-1, 1)
+    T, k = w.shape
+    return got.reshape(T, k, -1).sum(dim=1)
+
+
+def _exchange(buf: torch.Tensor, group, n: int) -> torch.Tensor:
+    """(E, cap, D) -> (E/n, n cap, D): every expert's slots from the n
+    ranks of ``group``, on the rank that holds the expert."""
+    E, cap, D = buf.shape
+    recv = col.all_to_all(buf.reshape(n, E // n, cap, D), group)
+    return recv.transpose(0, 1).reshape(E // n, n * cap, D)
+
+
+def _return(ye: torch.Tensor, group, n: int) -> torch.Tensor:
+    """The inverse of :func:`_exchange`."""
+    e_local, ncap, D = ye.shape
+    ye = ye.reshape(e_local, n, ncap // n, D).transpose(0, 1).contiguous()
+    return col.all_to_all(ye, group).reshape(n * e_local, ncap // n, D)
+
+
+def apply_moe_sharded(params: Params, x: torch.Tensor, top_k: int, n_experts: int,
+                      mesh, ep_axis: str = "data", tp_axis: str = "model",
+                      capacity_factor: float = 1.25,
+                      schedule: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sharded dispatch (reference :134-382).  x: this rank's batch
+    shard (Bl, S, D), the same on every rank of ``tp_axis``; the params
+    are DTensors (or whole tensors) of any layout.  Returns (y, aux): y
+    of x's shape, the same on every rank of ``tp_axis``, and this rank's
+    share of the load-balancing loss: the mean of every shard's own loss
+    over the (pod, data, model) shards, divided by |pod| |data|, so that
+    its sum over the batch shards is that mean, which is the reference's
+    ``pmean`` over ``ep_axis`` and ``tp_axis``.
+
+    ``schedule``: ``2d`` (experts over ``ep_axis``, each expert's F over
+    ``tp_axis``; tokens all-gathered over ``tp_axis`` and the partial
+    outputs reduce-scattered back), ``ep_tp`` (whole experts over
+    ``tp_axis``, one all_to_all over it), ``2d_dshard`` (experts over
+    ``ep_axis``, D over ``tp_axis``: the router's logits and the hidden
+    summed over ``tp_axis``), or ``auto`` (:func:`choose_schedule`)."""
+    if schedule == "auto":
+        schedule = choose_schedule(n_experts, x.shape[-1], params["w_gate"].shape[-1],
+                                   mesh, ep_axis, tp_axis)
+    if schedule not in LAYOUTS:
+        raise ValueError(f"unknown MoE schedule {schedule!r}; have {', '.join(LAYOUTS)}")
+    ep_group, ep = _axis(mesh, ep_axis)
+    tp_group, tp = _axis(mesh, tp_axis)
+    owners = tp if schedule == "ep_tp" else ep
+    if n_experts % owners:
+        raise ValueError(f"{n_experts} experts do not split over {owners} ranks")
+    layout = LAYOUTS[schedule]
+    if (ep_axis, tp_axis) != ("data", "model"):
+        swap = {"data": ep_axis, "model": tp_axis}
+        layout = {k: PartitionSpec(*(swap.get(a, a) for a in spec))
+                  for k, spec in layout.items()}
+    w = {k: _local_weight(params[k], mesh, layout[k]) for k in layout}
+    S = x.shape[1]
+    if schedule == "2d_dshard":
+        x_l = col.split(x, tp_group, 2)
+    elif S % tp == 0:
+        x_l = col.split(x, tp_group, 1)
+    else:                                   # decode: every tp rank has every token
+        x_l = col.varying(x, tp_group)
+    T = x_l.shape[0] * x_l.shape[1]
+    xf = x_l.reshape(T, x_l.shape[2])
+    if schedule == "2d_dshard":             # partial logits over D slices
+        logits = col.all_reduce(torch.matmul(xf.float(), w["router"].float()), tp_group)
+        gw, idx = torch.topk(torch.softmax(logits, dim=-1), top_k, dim=-1)
+        gw = (gw / torch.sum(gw, dim=-1, keepdim=True)).to(x.dtype)
+    else:
+        idx, gw, logits = router_probs(w["router"], xf, top_k)
+    cap = capacity(T, top_k, n_experts, capacity_factor)
+    flat_e = idx.reshape(-1)
+    slot = slots(flat_e, n_experts)
+    keep = slot < cap
+    if _ROUTE_LOG is not None:
+        _ROUTE_LOG.append({"schedule": schedule, "cap": cap, "tokens": T,
+                           "expert": flat_e.detach(), "slot": slot, "keep": keep})
+    dest = torch.where(keep, flat_e * cap + slot, n_experts * cap)
+    buf = _scatter(xf, dest, n_experts, cap, top_k)
+    if schedule == "ep_tp":                 # one hop over the tensor axis
+        ye = _expert_ffn(w["w_gate"], w["w_up"], w["w_down"], _exchange(buf, tp_group, tp))
+        back = _return(ye, tp_group, tp)
+    elif schedule == "2d":
+        toks = col.all_gather(_exchange(buf, ep_group, ep), tp_group, 1)
+        part = _expert_ffn(w["w_gate"], w["w_up"], w["w_down"], toks)
+        back = _return(col.reduce_scatter(part, tp_group, 1), ep_group, ep)
+    else:
+        toks = _exchange(buf, ep_group, ep)
+        g = col.all_reduce(torch.bmm(toks, w["w_gate"]), tp_group)
+        u = col.all_reduce(torch.bmm(toks, w["w_up"]), tp_group)
+        back = _return(torch.bmm(F.silu(g) * u, w["w_down"]), ep_group, ep)
+    y = _combine(back, dest, gw).reshape(x_l.shape)
+    if schedule == "2d_dshard":
+        y = col.gather(y, tp_group, 2)
+    elif S % tp == 0:
+        y = col.gather(y, tp_group, 1)
+    else:
+        y = col.replicated(y, tp_group)
+    aux = aux_load_balance_loss(logits, idx, n_experts)
+    aux = col.replicated(col.all_reduce(aux, tp_group) / tp, tp_group)
+    shards = math.prod(mesh.size(i) for i, n in enumerate(mesh.mesh_dim_names)
+                       if n in BATCH_AXES)
+    return y, aux / shards

@@ -1,4 +1,6 @@
-"""Rank bodies for ``tests/test_torch_distributed.py``.
+"""Rank bodies for ``tests/test_torch_distributed.py``,
+``tests/test_torch_moe_sharded.py``, ``tests/test_torch_mesh_serve.py``
+and ``tests/test_torch_dryrun.py``.
 
 ``python tests/_torch_ranks.py CASE WORLD DIR`` starts WORLD processes
 (``torch.multiprocessing``, spawn), each a rank of a gloo process group
@@ -258,8 +260,164 @@ def one_rank(rank, d):
     _save(d, rank, **out)
 
 
+# ---------------------------------------------------------------------------
+# the sharded MoE dispatch (tests/test_torch_moe_sharded.py)
+# ---------------------------------------------------------------------------
+
+MOE_SCHEDULES = ("2d", "ep_tp", "2d_dshard")
+
+
+def _moe_params(inp, tag, mesh):
+    """The MoE weights ``tag/<name>`` of ``in.npz`` as DTensor leaves laid
+    out by the default rules."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.sharding.rules import placements, resolve_spec
+    axes = {"router": ("embed", "expert"), "w_gate": ("expert", "embed", "ff"),
+            "w_up": ("expert", "embed", "ff"), "w_down": ("expert", "ff", "embed")}
+    out = {}
+    for n, ax in axes.items():
+        full = torch.from_numpy(inp[f"{tag}/{n}"])
+        pl = placements(resolve_spec(tuple(full.shape), ax, mesh), mesh)
+        out[n] = distribute_tensor(full, mesh, pl, src_data_rank=None).requires_grad_()
+    return out
+
+
+def _generate(model, batch, n):
+    """Greedy: the prefill's last logits, and those of ``n - 1`` decode
+    steps, each fed the previous argmax; and the argmax tokens."""
+    logits, cache = model.prefill(batch, max_len=batch["tokens"].shape[1] + n)
+    steps, toks = [logits], [logits.argmax(-1)]
+    for _ in range(n - 1):
+        logits, cache = model.decode_step(toks[-1], cache)
+        steps.append(logits)
+        toks.append(logits.argmax(-1))
+    return torch.stack(steps, 1), torch.stack(toks, 1)
+
+
+def moe_fn(rank, d):
+    """On (4, 2): apply_moe_sharded per (schedule, capacity factor) with
+    the gradients of sum(y^2) + aux and each dispatch's slots; the S = 1
+    case; then the reduced granite (moe_impl="sharded") per schedule:
+    the prefill's logits, one decode step's and the loss."""
+    from repro_torch.distributed.collectives import batch_sum
+    from repro_torch.models.moe import apply_moe_sharded, route_log
+    from repro_torch.sharding import shard_batch
+    mesh = make_mesh((4, 2), ("data", "model"), "cpu")
+    inp, out = _inputs(d), {}
+    E, k = int(inp["E"]), int(inp["k"])
+    rows = slice(2 * mesh.get_local_rank("data"), 2 * mesh.get_local_rank("data") + 2)
+    for sched in MOE_SCHEDULES:
+        tag = "ds" if sched == "2d_dshard" else "f"
+        for cf in inp["cfs"]:
+            p = _moe_params(inp, tag, mesh)
+            x = torch.from_numpy(inp["x"][rows]).requires_grad_()
+            with route_log() as log:
+                y, aux = apply_moe_sharded(p, x, k, E, mesh, capacity_factor=float(cf),
+                                           schedule=sched)
+            ((y ** 2).sum() + aux).backward()
+            key = f"{sched}/{cf:g}"
+            out.update({f"{key}/y": y, f"{key}/aux": batch_sum(aux, mesh), f"{key}/gx": x.grad,
+                        f"{key}/slot": log[0]["slot"], f"{key}/keep": log[0]["keep"],
+                        **{f"{key}/g_{n}": t.grad.full_tensor() for n, t in p.items()}})
+        with torch.no_grad():
+            y1, _ = apply_moe_sharded(_moe_params(inp, tag, mesh),
+                                      torch.from_numpy(inp["x1"][rows]), k, E, mesh,
+                                      capacity_factor=E / k, schedule=sched)
+        out[f"{sched}/y1"] = y1
+    toks = torch.from_numpy(inp["tokens"]).long()
+    base = reduced(get_config("granite-moe-1b-a400m")).replace(moe_impl="sharded")
+    for sched in MOE_SCHEDULES:
+        model = _model(base.replace(moe_schedule=sched), mesh, inp)
+        logits, tokens = _generate(model, shard_batch({"tokens": toks}, mesh), 2)
+        with torch.no_grad():
+            loss, metrics = model.loss(shard_batch({"tokens": toks, "labels": toks}, mesh))
+        out.update({f"{sched}/logits": logits, f"{sched}/tokens": tokens,
+                    f"{sched}/loss": batch_sum(loss, mesh),
+                    f"{sched}/aux_model": batch_sum(metrics["aux"], mesh)})
+    _save(d, rank, data_rank=mesh.get_local_rank("data"), **out)
+
+
+def moe_train(rank, d):
+    """One train step of the reduced granite (moe_impl="sharded") on
+    (2, 2) per schedule: the loss and the gradients AdamW received."""
+    inp = _inputs(d)
+    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+    base = reduced(get_config("granite-moe-1b-a400m")).replace(moe_impl="sharded")
+    out = {}
+    for sched in MOE_SCHEDULES:
+        metrics, grads, _ = _train_step(base.replace(moe_schedule=sched), mesh, inp)
+        out[f"{sched}/loss"] = metrics["loss"]
+        out.update({f"{sched}/g/{k}": v for k, v in grads.items()})
+    _save(d, rank, **out)
+
+
+def moe_one(rank, d):
+    """The reduced granite (moe_impl="sharded") on a (1, 1) mesh: the
+    prefill's logits and the loss of the batches in ``in.npz``."""
+    from repro_torch.sharding import shard_batch
+    inp = _inputs(d)
+    mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+    model = _model(reduced(get_config("granite-moe-1b-a400m")).replace(moe_impl="sharded"),
+                   mesh, inp)
+    out = {}
+    for key in inp["cases"]:
+        toks = torch.from_numpy(inp[f"{key}/tokens"]).long()
+        batch = shard_batch({"tokens": toks, "labels": toks}, mesh)
+        with torch.no_grad():
+            logits, _ = model.prefill(batch)
+            loss, _ = model.loss(batch)
+        out.update({f"{key}/logits": logits, f"{key}/loss": loss})
+    _save(d, rank, **out)
+
+
+# ---------------------------------------------------------------------------
+# serving on a mesh (tests/test_torch_mesh_serve.py)
+# ---------------------------------------------------------------------------
+
+def mesh_serve(rank, d):
+    """On (2, 2), per arch named in ``in.npz``: the prefill's logits and one
+    decode step's (``_generate``, fed this rank's rows as plain tensors),
+    and three greedy tokens through ``serve.generate`` (fed the batch as
+    DTensors), for this rank's rows."""
+    from repro_torch.serve import generate
+    from repro_torch.sharding import shard_batch
+    inp = _inputs(d)
+    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+    out = {"data_rank": mesh.get_local_rank("data")}
+    for arch in inp["archs"]:
+        arch = str(arch)
+        model = _model(reduced(get_config(arch)), mesh, inp, prefix=f"{arch}/sd/")
+        batch = shard_batch({k.split("/", 2)[2]: torch.from_numpy(v)
+                             for k, v in inp.items() if k.startswith(f"{arch}/in/")}, mesh)
+        logits, _ = _generate(model, {k: v.to_local() for k, v in batch.items()}, 2)
+        out[f"{arch}/logits"] = logits
+        out[f"{arch}/tokens"] = generate(model, batch, 3)      # the DTensor batch
+    _save(d, rank, **out)
+
+
+# ---------------------------------------------------------------------------
+# the dry run's counters on real ranks (tests/test_torch_dryrun.py)
+# ---------------------------------------------------------------------------
+
+def dryrun_gloo(rank, d):
+    """``launch.dryrun.measure`` on a real (2, 2) mesh for the reduced
+    cells named in ``in.npz``: per-rank bytes, FLOPs and collectives."""
+    import json
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch.dryrun import measure
+    inp = _inputs(d)
+    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+    out = {}
+    for cell in json.loads(str(inp["cells"])):
+        cfg = reduced(get_config(cell["arch"])).replace(**cell["cfg"])
+        res = measure(cfg, ShapeSpec(**cell["shape"]), mesh, torch.device("cpu"))
+        out[cell["name"]] = json.dumps(res)
+    _save(d, rank, **out)
+
+
 CASES = {f.__name__: f for f in (ring, ring_model, fsdp, pipeline, compression,
-                                 checkpoint, train, compress, launch, one_rank)}
+                                 checkpoint, train, compress, launch, one_rank,
+                                 moe_fn, moe_train, moe_one, mesh_serve, dryrun_gloo)}
 
 
 def _entry(rank, case, world, d):

@@ -438,7 +438,7 @@ def test_launch_train_runs_on_cpu(arch, accum):
 
 
 class _Mesh:
-    """What the sharded-MoE refusal and the serving guard read of a mesh."""
+    """What the sharded MoE dispatch reads of a mesh before its schedule."""
     mesh_dim_names = ("data", "model")
 
     def size(self, dim=None):
@@ -446,19 +446,18 @@ class _Mesh:
 
 
 def test_launch_train_refuses_what_is_not_ported():
-    """A mesh without its ranks, an unknown arch, the sharded MoE dispatch
-    on a mesh of several devices and serving on a mesh raise; the
-    multi-rank paths themselves are in tests/test_torch_distributed.py."""
+    """A mesh without its ranks, an unknown arch and an unknown MoE
+    schedule on a mesh raise; without a mesh ``moe_impl="sharded"`` runs
+    the dense dispatch.  The multi-rank paths themselves are in
+    tests/test_torch_distributed.py and tests/test_torch_moe_sharded.py."""
     with pytest.raises(RuntimeError, match="2 ranks"):
         ttrain.main(["--arch", "olmo-1b", "--reduced", "--device", "cpu", "--mesh", "2x1"])
     with pytest.raises(SystemExit):             # not a registered arch
         ttrain.main(["--arch", "no-such-arch", "--device", "cpu"])
-    cfg = reduced(get_config("granite-moe-1b-a400m")).replace(moe_impl="sharded")
+    cfg = reduced(get_config("granite-moe-1b-a400m")).replace(moe_impl="sharded",
+                                                              moe_schedule="3d")
     model = build_model(cfg, device="cpu")
     x = torch.zeros(2, 8, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="sharded MoE dispatch"):
+    with pytest.raises(ValueError, match="unknown MoE schedule"):
         lm._apply_ffn(model.blocks[0], x, cfg, _Mesh())
     assert lm._apply_ffn(model.blocks[0], x, cfg)[0].shape == x.shape   # no mesh: dense
-    model.mesh = _Mesh()
-    with pytest.raises(NotImplementedError, match="serving"):
-        model.prefill({"tokens": torch.zeros(2, 8, dtype=torch.long)})
