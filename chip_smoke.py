@@ -14,7 +14,11 @@ Phases, each fatal on failure:
    instructions counted per kernel in the built SASS (``HGMMA`` in every
    tensor-core instance, in no CUDA-core one), and per stencil and conv1d
    kernel its registers and its SASS by class (integer, float, shared
-   memory, barriers) per output (per output vector for conv1d);
+   memory, barriers) per output (per output vector for conv1d).  Each
+   bench's ``paper`` plan and each conv1d ``shuffle`` build analyses its
+   lowered PTX through ``synthesize_cuda`` and so through the default
+   ``Compiler`` session (``Compiler.analyze``, memory cache shared with
+   phases 3-4);
 3. parity: per stencil bench, the shuffle plan (emulator detection vs
    schedule) and each mode's kernel against the plain PyTorch version at
    a ragged medium shape and at shapes ragged along the march (1, R - 1,
@@ -34,7 +38,11 @@ Phases, each fatal on failure:
    counts read around it; then each kernel timed with CUDA events against
    its bound, the plain version, a copy of the same bytes and ``conv2d``
    (Jacobi) or ``conv3d`` of the separable weights plus u + v + s
-   (tricubic);
+   (tricubic).  After this phase the default session's cache counts are
+   printed: 15 misses, one per distinct lowered kernel phases 2-4 analyse
+   (the 13 benches' paper plans, the conv1d programs of widths 3 and 4),
+   memory hits for every later analysis, no disk tier; after phase 11 the
+   misses are still 15;
 5. the serving path: mamba2-1.3b at its published widths (bf16, random
    weights from a seed) serves 4 requests x 1024-token prompts x 32
    greedy tokens through ``repro_torch.launch.serve``, with launch counts
@@ -139,7 +147,22 @@ Phases, each fatal on failure:
    subprocess of its own: granite-moe-1b-a400m x train_4k on (16, 16)
    and kimi-k2-1t-a32b x decode_32k on (2, 16, 16) (its MoE on
    ``2d_dshard``), their per-rank bytes, FLOPs and collectives;
-12. a ``kernels`` JSON line, and as the last line the device record.
+12. the compile side, on the host: a ``Compiler(jobs=4)`` session with a
+   disk tier in a temporary directory under ``build/`` compiles the 19
+   KernelGen sources (``SUITE`` and ``APPLICATIONS``) for ``hopper``
+   through ``compile_many`` (19 misses, 19 emulations), again (19 memory
+   hits, 0 emulations), and in a fresh session on the same directory (19
+   disk hits, 0 emulations), with the three walls, the pass times, the
+   shuffles and the emulator counters printed; every Hopper shuffle is
+   ``shfl.sync`` with mask ``0xffffffff``; ``variants`` over the six
+   targets with cost selection prints kept/dropped per target and source,
+   Jacobi's as the paper's Fig. 2 (Pascal and Maxwell keep all 6 pairs,
+   Kepler and Volta drop some); per bench of phase 2 the original and the
+   synthesized PTX run on the concrete emulator at the reference test's
+   grid (70 x 6 x 5, blocks of 64, inputs from ``default_rng(0)``) are
+   bitwise equal, and ``stencil_apply(mode="paper")`` on the card is
+   within ``TOL`` of them;
+13. a ``kernels`` JSON line, and as the last line the device record.
 
 Run from the repository root:  python3 chip_smoke.py
 Needs one CUDA device and nvcc for sm_90a; exits non-zero without them.
@@ -238,6 +261,13 @@ MOE_SCHEDULES = ("2d", "ep_tp", "2d_dshard")
 MOE_CARD_TOL = 1e-4
 DRYRUN_CELLS = (("granite-moe-1b-a400m", "train_4k", False),
                 ("kimi-k2-1t-a32b", "decode_32k", True))
+# the conv1d widths built in phase 2; with the benches' paper plans, the
+# distinct kernels phases 2-4 analyse through the default compiler session
+CONV_WIDTHS = (4, 3)
+# the compile side (phase 12): the reference test's concrete-emulator grid
+# (tests/test_core_pipeline.py::_run_versions) and the session's workers
+CONCRETE_GRID = dict(nx=70, ny=6, nz=5, block_x=64)
+COMPILE_JOBS = 4
 
 
 def sh(*cmd: str) -> str:
@@ -2114,6 +2144,151 @@ def dryrun_phase(report) -> None:
               + f"; {cell['wall_s']:.1f} s in the cell, {wall:.1f} s with start-up")
 
 
+def concrete_versions(prog, max_delta, compiler, nx, ny, nz, block_x):
+    """The original and the synthesized (``ptxasw``) PTX of ``prog`` on the
+    concrete warp emulator, as ``tests/test_core_pipeline.py::_run_versions``
+    runs them: the same inputs from ``default_rng(0)`` for both, scalars
+    0.3.  Returns both outputs (full arrays) and the inputs."""
+    import numpy as np
+
+    from repro_torch.core.emulator.concrete import f32_bits, run_concrete
+    from repro_torch.core.frontend.stencil import lower_to_ptx
+
+    kernel = lower_to_ptx(prog)
+    syn = compiler.compile(kernel, max_delta=max_delta).module.kernels[0]
+    nd = prog.ndim
+    shape = {1: (nx,), 2: (ny, nx), 3: (nz, ny, nx)}[nd]
+    h = prog.halo
+    nbx = -(-(shape[-1] - 2 * h[0]) // block_x)
+    grid = (nbx, 1, 1) if nd == 1 else (nbx, shape[0] - 2 * h[1], 1) if nd == 2 \
+        else (nbx, shape[1] - 2 * h[1], shape[0] - 2 * h[2])
+    outs = []
+    for k in (kernel, syn):
+        rng = np.random.default_rng(0)
+        params = {a: (np.zeros(shape[-d:], np.float32) if a == prog.out.array
+                      else rng.standard_normal(shape[-d:]).astype(np.float32))
+                  for a, d in prog.arrays.items()}
+        arrays = {a: v.copy() for a, v in params.items() if a != prog.out.array}
+        params.update({f"n{d}": shape[::-1][d] for d in range(nd)})
+        params.update({s: f32_bits(0.3) for s in prog.scalars})
+        run_concrete(k, params, ntid=(block_x, 1, 1), nctaid=grid)
+        outs.append(params[prog.out.array])
+    return outs, arrays
+
+
+def compile_side(report, benches, device="cuda") -> None:
+    """Phase 12: the compile side on the card's machine, fatal on any failure.
+    (a) a ``Compiler(jobs=4)`` session with a disk tier compiles the 19
+    KernelGen sources for ``hopper`` through ``compile_many``: cold, again
+    from memory, then in a fresh session from disk, with no emulation in
+    either warm pass; (b) ``variants`` over every registered target with
+    cost selection, Jacobi's keep/drop split as the paper's Fig. 2 and
+    every Hopper shuffle ``shfl.sync`` with the full mask; (c) per bench
+    in ``benches``, the original and synthesized PTX on the concrete
+    emulator bitwise equal, and ``stencil_apply(mode="paper")`` on
+    ``device`` within the stencil tolerance of them."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.driver import Compiler
+    from repro_torch.core.frontend.kernelgen import APPLICATIONS, SUITE, get_bench
+    from repro_torch.kernels.stencil import stencil_apply
+
+    rec = report.setdefault("compile_side", {})
+    names = [*SUITE, *APPLICATIONS]
+
+    def batch(cc):
+        before = cc.cache_stats.snapshot()
+        t0 = time.perf_counter()
+        results = cc.compile_many([get_bench(n) for n in names], target="hopper")
+        wall = time.perf_counter() - t0
+        after = cc.cache_stats.snapshot()
+        delta = {f: getattr(after, f) - getattr(before, f)
+                 for f in ("hits", "misses", "disk_hits", "disk_misses")}
+        emulations = sum(not r.cached for res in results for r in res.reports)
+        return {"wall_s": wall, "emulations": emulations, **delta}, results
+
+    with tempfile.TemporaryDirectory(prefix="compile-side-",
+                                     dir=os.path.join(ROOT, "build")) as cache_dir:
+        with Compiler(jobs=COMPILE_JOBS, cache_dir=cache_dir) as cc:
+            cold, results = batch(cc)
+            warm, again = batch(cc)
+            pass_times, counters = cc.pass_times, cc.counters
+        with Compiler(jobs=COMPILE_JOBS, cache_dir=cache_dir) as cc:
+            disk, from_disk = batch(cc)
+            disk_pass_times = cc.pass_times
+    n = len(names)
+    want = {"cold": dict(misses=n, disk_misses=n, emulations=n),
+            "memory-warm": dict(hits=n, misses=0, emulations=0),
+            "disk-warm": dict(misses=n, disk_hits=n, disk_misses=0, emulations=0)}
+    for tag, got in (("cold", cold), ("memory-warm", warm), ("disk-warm", disk)):
+        if any(got[k] != v for k, v in want[tag].items()):
+            raise RuntimeError(f"compile side, {tag} pass: {got}, expected {want[tag]}")
+    if disk_pass_times:
+        raise RuntimeError(f"compile side: the disk-warm session ran passes {disk_pass_times}")
+    ptx = [r.ptx for r in results]
+    if [r.ptx for r in again] != ptx or [r.ptx for r in from_disk] != ptx:
+        raise RuntimeError("compile side: a warm pass printed other PTX")
+    shuffles = {name: r.n_shuffles for name, r in zip(names, results)}
+    shfl_lines = [ln for text in ptx for ln in text.splitlines() if "shfl." in ln]
+    if not shfl_lines or not all("shfl.sync." in ln and ln.rstrip(";").endswith("0xffffffff")
+                                 for ln in shfl_lines):
+        raise RuntimeError("compile side: a hopper shuffle is not shfl.sync with the full mask")
+    rec.update(cold=cold, memory_warm=warm, disk_warm=disk, pass_times_s=pass_times,
+               counters=counters, shuffles=shuffles, shfl_sync_lines=len(shfl_lines))
+    print(f"[compile] {n} sources for hopper, Compiler(jobs={COMPILE_JOBS}) with a disk "
+          f"tier: cold {cold['wall_s']:.3f} s ({cold['emulations']} emulations), "
+          f"memory-warm {warm['wall_s']:.4f} s ({warm['hits']} hits, "
+          f"{warm['emulations']} emulations), disk-warm in a fresh session "
+          f"{disk['wall_s']:.4f} s ({disk['disk_hits']} disk hits, "
+          f"{disk['emulations']} emulations)")
+    print("[compile] pass times (s): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in pass_times.items()))
+    print(f"[compile] {n} kernels, {sum(shuffles.values())} shuffles, "
+          f"{len(shfl_lines)} shfl.sync lines with mask 0xffffffff; counters "
+          + ", ".join(f"{k} {v}" for k, v in sorted(counters.items())))
+
+    # (b) per-target variants under cost selection
+    split = {}
+    with Compiler(jobs=COMPILE_JOBS) as cc:
+        for name in names:
+            for target, res in cc.variants(get_bench(name), selection="cost").items():
+                sel = res.reports[0].selection
+                split.setdefault(target, {})[name] = (sel.n_kept, sel.n_dropped)
+    jac = {t: split[t]["jacobi"] for t in split}
+    if not (jac["pascal"] == jac["maxwell"] == (6, 0)
+            and jac["kepler"][1] >= 1 and jac["volta"][1] >= 1):
+        raise RuntimeError(f"compile side: Jacobi's keep/drop split {jac} is not Fig. 2's")
+    rec["kept_dropped"] = split
+    for target, per in split.items():
+        print(f"[compile] cost selection {target:<8} kept/dropped: "
+              + " ".join(f"{k} {a}/{b}" for k, (a, b) in per.items()))
+
+    # (c) synthesis changes no output, and the card agrees
+    conc = rec.setdefault("concrete", {})
+    with Compiler() as cc:
+        for name, b in benches.items():
+            prog = b.program
+            (orig, syn), arrays = concrete_versions(prog, b.max_delta, cc, **CONCRETE_GRID)
+            if not np.array_equal(orig.view(np.uint32), syn.view(np.uint32)):
+                raise RuntimeError(f"compile side: {name}: synthesis changed the "
+                                   f"concrete emulator's output")
+            interior = tuple(slice(h, orig.shape[ax] - h)
+                             for ax, h in enumerate(reversed(prog.halo[:prog.ndim])))
+            want_out = torch.from_numpy(orig[interior]).to(device)
+            got = stencil_apply(prog, arrays, {s: 0.3 for s in prog.scalars},
+                                mode="paper", max_delta=b.max_delta, device=device)
+            err = float((got - want_out).abs().max())
+            torch.testing.assert_close(got, want_out, **TOL)
+            conc[name] = {"shape": list(orig.shape), "max_abs_err": err}
+    print(f"[compile] concrete emulator at {CONCRETE_GRID}: original == synthesized "
+          f"bitwise for {len(benches)} benches; stencil_apply(paper) on {device} within "
+          f"{TOL['atol']:g}, max|err| " + " ".join(f"{k} {v['max_abs_err']:.1e}"
+                                                for k, v in conc.items()))
+
+
 def mesh_path(report, kernels, entries) -> None:
     """Phases 9 and 10: the mesh path at world size 1 over NCCL, then the
     sharded MoE dispatch on the same group (its CPU reference first, on a
@@ -2171,6 +2346,7 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch.build import nvcc_path, register_counts, sass_counts
+    from repro_torch.core.driver import default_compiler
     from repro_torch.core.frontend.cuda_lower import synthesize_cuda
     from repro_torch.core.frontend.kernelgen import get_bench
     from repro_torch.kernels import conv1d as tconv
@@ -2197,7 +2373,7 @@ def main() -> int:
         raise RuntimeError(f"the kernels are built for sm_90a; device is sm_{cap[0]}{cap[1]}")
 
     # -- 2. build: one nvcc per source, all started together -----------------
-    conv_items = [(m, W) for W in (4, 3) for m in tconv.MODES]
+    conv_items = [(m, W) for W in CONV_WIDTHS for m in tconv.MODES]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=3) as pool:
         conv_job = pool.submit(tconv.build_kernels, conv_items)
@@ -2416,6 +2592,20 @@ def main() -> int:
         report["paper"][name] = rec
         del xs
 
+    # phases 2-4 analysed every paper plan and conv1d shuffle build through the
+    # default compiler session: one miss per distinct lowered kernel, hits after
+    session = default_compiler()
+    main_stats = session.cache_stats.snapshot()
+    distinct = len(STENCIL_BENCHES) + len(CONV_WIDTHS)
+    report["compiler_cache"] = {"after_phase_4": main_stats.to_dict(), "distinct": distinct}
+    print(f"[compile] default session after phase 4: {main_stats.summary}; "
+          f"{distinct} distinct kernels ({len(STENCIL_BENCHES)} benches' paper plans, "
+          f"conv1d widths {', '.join(map(str, CONV_WIDTHS))})")
+    if main_stats.misses != distinct or main_stats.hits < 1 or main_stats.disk_hits \
+            or main_stats.disk_misses:
+        raise RuntimeError(f"default session after phase 4: {main_stats}, expected "
+                           f"{distinct} misses and memory hits only")
+
     # -- 5-7. the serving paths at full width: mamba2-1.3b, zamba2-1.2b, the
     #         dense olmo-1b and yi-9b, the MoE granite and the enc-dec
     #         seamless; starcoder2-3b, kimi-k2 and llama-vision reduced only --
@@ -2438,7 +2628,18 @@ def main() -> int:
     # -- 11. the dry run's cells, on the host --------------------------------------
     dryrun_phase(report)
 
-    # -- 12. records -----------------------------------------------------------
+    # every later analysis of a program phases 2-4 analysed was a memory hit
+    end_stats = session.cache_stats.snapshot()
+    report["compiler_cache"]["after_phase_11"] = end_stats.to_dict()
+    print(f"[compile] default session after phase 11: {end_stats.summary}")
+    if end_stats.misses != distinct:
+        raise RuntimeError(f"default session after phase 11: {end_stats}, expected "
+                           f"still {distinct} misses")
+
+    # -- 12. the compile side on the card's machine ---------------------------------
+    compile_side(report, benches)
+
+    # -- 13. records -----------------------------------------------------------
     report["card"] = card
     report["seconds"] = time.perf_counter() - t_start
     os.makedirs(os.path.dirname(REPORT), exist_ok=True)

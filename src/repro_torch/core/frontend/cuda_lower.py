@@ -16,7 +16,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, List, Tuple
 
-from repro_torch.core.frontend.kernelgen import analyze
+from repro_torch.core.driver import default_compiler
 from repro_torch.core.frontend.stencil import Program, collect_loads, lower_to_ptx
 from repro_torch.core.ptx.ir import Instr
 from repro_torch.core.synthesis.detect import DetectionResult
@@ -77,13 +77,23 @@ def detected_shuffles(prog: Program, detection: DetectionResult) -> List[Shuffle
     return sorted(s for s in out if not (s[2] == 0 and s[0] == s[1]))
 
 
-def synthesize_cuda(prog: Program, max_delta: int = 31) -> CudaShufflePlan:
+def synthesize_cuda(prog: Program, max_delta: int = 31,
+                    compiler=None) -> CudaShufflePlan:
     """Run the paper pipeline on the program's PTX lowering (symbolic
     emulation + shuffle detection), derive the per-row shuffle schedule
     and cross-check the two, tap by tap.  Kernels are built only from a
     plan whose ``consistent`` holds, so every shuffle the ``paper``
-    kernel issues is one the emulator detected."""
-    detection = analyze(prog, max_delta=max_delta)
+    kernel issues is one the emulator detected.
+
+    ``compiler`` is the :class:`repro_torch.core.driver.Compiler` session
+    to analyze through (defaults to the process-default session, whose
+    shared result cache lets repeated plans for the same program skip
+    re-emulation), as ``synthesize_tpu`` does in the reference.
+    """
+    # analysis-only path (emulate + detect, no codegen)
+    result = (compiler or default_compiler()).analyze(
+        lower_to_ptx(prog), max_delta=max_delta)
+    detection = result.reports[0].detection
     try:
         plan = make_plan(prog, "paper")
     except ValueError:

@@ -1,5 +1,4 @@
-"""Mirrors ``src/repro/core/frontend/stencil.py``; ``f32_bits`` is copied in
-rather than imported from the concrete emulator.
+"""Mirrors ``src/repro/core/frontend/stencil.py`` (only the imports differ).
 
 Directive-style loop-nest DSL and its PTX lowering.
 
@@ -19,20 +18,13 @@ drive in-register (VMEM tile) reuse instead of ``shfl`` instructions.
 from __future__ import annotations
 
 import itertools
-import struct
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
-import numpy as np
-
 from ..ptx.ir import Imm, Instr, Kernel, Label, LabelRef, MemRef, Reg
+from ..emulator.concrete import f32_bits
 
 PARALLEL_VARS = ("i", "j", "k")
-
-
-def f32_bits(x: float) -> int:
-    """Copy of ``repro.core.emulator.concrete.f32_bits``."""
-    return struct.unpack("<I", struct.pack("<f", float(np.float32(x))))[0]
 
 
 # ---------------------------------------------------------------------------

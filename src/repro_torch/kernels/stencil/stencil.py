@@ -46,8 +46,8 @@ from repro_torch.core.frontend.stencil import (
     Program,
     Scalar,
     collect_loads,
-    f32_bits,
 )
+from repro_torch.core.emulator.concrete import f32_bits
 from .ref import interior_shape, tap_offsets
 
 MODES = ("naive", "paper", "tile")

@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")  # the port's tests need PyTorch
 from repro.kernels.conv1d import causal_conv1d as jax_conv1d
 from repro.kernels.conv1d import hbm_bytes as jax_hbm_bytes
 from repro.kernels.conv1d import ref as jax_conv_ref
+from repro_torch.core.driver import Compiler
 from repro_torch.core.frontend import cuda_lower
 from repro_torch.kernels import conv1d as tconv
 from repro_torch.kernels.conv1d import conv1d as tconv_gen
@@ -66,7 +67,7 @@ def test_shuffle_schedule_is_the_detection(W):
     schedule moves exactly those taps by those deltas, and the generated
     kernel issues exactly those shuffles."""
     prog = tconv.conv_program(W)
-    det = cuda_lower.analyze(prog)
+    det = cuda_lower.synthesize_cuda(prog).detection
     assert sorted(p.delta for p in det.pairs) == list(range(1, W))
     spec = tconv.make_spec("shuffle", W)
     assert spec.sources == (1 - W,)
@@ -95,7 +96,8 @@ def test_reference_program_deltas():
     x = Array("x")
     expr = (0.1 * x[I(-3)] + 0.2 * x[I(-2)] + 0.3 * x[I(-1)] + 0.4 * x[I(0)])
     prog = Program(name="conv1d", ndim=1, out=Array("y")[I()], expr=expr)
-    assert sorted(p.delta for p in cuda_lower.analyze(prog).pairs) == [1, 2, 3]
+    det = Compiler().analyze(prog).reports[0].detection
+    assert sorted(p.delta for p in det.pairs) == [1, 2, 3]
 
 
 def test_shuffle_build_refuses_a_disagreeing_detection(monkeypatch):

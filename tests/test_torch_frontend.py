@@ -7,6 +7,7 @@ import os
 import subprocess
 import sys
 import textwrap
+import types
 
 import pytest
 
@@ -16,7 +17,8 @@ from repro.core.driver import Compiler
 from repro.core.frontend import kernelgen as ref_kernelgen
 from repro.core.frontend import stencil as ref_dsl
 from repro.core.frontend.pallas_lower import synthesize_tpu
-from repro_torch.core.frontend import kernelgen
+from repro_torch.core.driver import Compiler as PortCompiler
+from repro_torch.core.frontend import cuda_lower, kernelgen
 from repro_torch.core.frontend import stencil as dsl
 from repro_torch.core.frontend.cuda_lower import synthesize_cuda
 from repro_torch.interop import program_from_reference
@@ -64,7 +66,7 @@ def test_lowering_and_detection_match_reference(name):
 
     ref_det = Compiler().analyze(
         ref_b.program, max_delta=ref_b.max_delta).reports[0].detection
-    det = kernelgen.analyze(b.program, max_delta=b.max_delta)
+    det = synthesize_cuda(b.program, max_delta=b.max_delta).detection
     pairs = [(p.dst_uid, p.src_uid, p.delta) for p in det.pairs]
     assert pairs == [(p.dst_uid, p.src_uid, p.delta) for p in ref_det.pairs]
     assert (det.n_loads, det.n_flows) == (ref_det.n_loads, ref_det.n_flows)
@@ -92,11 +94,10 @@ def test_cuda_plan_refuses_detection_that_moves_other_taps(monkeypatch, mutation
     """A detection with as many pairs as the schedule, but other deltas
     (``negate``) or the same deltas on other taps (``rotate``), is not
     ``consistent``, and no kernel is built from it."""
-    from repro_torch.core.frontend import cuda_lower
     from repro_torch.kernels.stencil import ops
 
     b = kernelgen.get_bench("jacobi")
-    det = kernelgen.analyze(b.program, max_delta=b.max_delta)
+    det = PortCompiler().analyze(b.program, max_delta=b.max_delta).reports[0].detection
     deltas = [p.delta for p in det.pairs]
     if mutation == "negate":
         deltas[0] = -deltas[0]
@@ -105,7 +106,13 @@ def test_cuda_plan_refuses_detection_that_moves_other_taps(monkeypatch, mutation
     assert deltas != [p.delta for p in det.pairs]
     wrong = dataclasses.replace(det, pairs=[
         dataclasses.replace(p, delta=d) for p, d in zip(det.pairs, deltas)])
-    monkeypatch.setattr(cuda_lower, "analyze", lambda prog, max_delta: wrong)
+
+    class WrongSession:
+        def analyze(self, src, max_delta):
+            return types.SimpleNamespace(
+                reports=[types.SimpleNamespace(detection=wrong)])
+
+    monkeypatch.setattr(cuda_lower, "default_compiler", WrongSession)
 
     plan = synthesize_cuda(b.program, max_delta=b.max_delta)
     assert plan.n_shuffles == plan.n_row_covered and not plan.consistent
@@ -121,7 +128,7 @@ def test_detection_finds_conv_deltas():
             + 0.4 * x[dsl.I(0)])
     prog = dsl.Program(name="conv1d", ndim=1, out=dsl.Array("y")[dsl.I()],
                        expr=expr)
-    det = kernelgen.analyze(prog)
+    det = PortCompiler().analyze(prog).reports[0].detection
     assert sorted(p.delta for p in det.pairs) == [1, 2, 3]
     plan = synthesize_cuda(prog)
     assert plan.consistent
