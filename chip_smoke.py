@@ -162,7 +162,24 @@ Phases, each fatal on failure:
    grid (70 x 6 x 5, blocks of 64, inputs from ``default_rng(0)``) are
    bitwise equal, and ``stencil_apply(mode="paper")`` on the card is
    within ``TOL`` of them;
-13. a ``kernels`` JSON line, and as the last line the device record.
+13. the full middle-end and the compile service, on the host but for the
+   stencil launches: a ``PtxServiceServer(jobs=4)`` with a disk tier in a
+   temporary directory under ``build/`` answers ``/healthz``; ``POST /lint``
+   of the 13 stencil benches (all clean) and of ``tests/lint_corpus/`` (the
+   clean twins clean, each planted bug found with the code its header
+   names); ``POST /compile`` of the 19 KernelGen sources by name with
+   ``target="hopper"``, ``saturate``, ``widen`` and ``lint="strict"``, cold
+   (19 misses) and again (19 memory hits, 0 emulations), each response's PTX
+   byte-equal to an in-process compile, no ERROR and no ``sat-gate``
+   diagnostic; per stencil bench a plan from ``Compiler(widen=True,
+   lint="strict")``, consistent and with the built ``paper`` kernel's
+   schedule, ``stencil_apply(mode="paper")`` on the card within ``TOL`` of
+   the saturated synthesized PTX on the concrete emulator (itself bitwise
+   equal to the original PTX's run), Jacobi and tricubic at the paper's
+   sizes bitwise equal to phase 4's paper output, launch counts read
+   around it; then ``drive_requests`` (64 requests, 8 clients) against a
+   second server on the same directory: req/s, p50/p99, no emulation;
+14. a ``kernels`` JSON line, and as the last line the device record.
 
 Run from the repository root:  python3 chip_smoke.py
 Needs one CUDA device and nvcc for sm_90a; exits non-zero without them.
@@ -268,6 +285,12 @@ CONV_WIDTHS = (4, 3)
 # (tests/test_core_pipeline.py::_run_versions) and the session's workers
 CONCRETE_GRID = dict(nx=70, ny=6, nz=5, block_x=64)
 COMPILE_JOBS = 4
+# the full middle-end and the compile service (phase 13): every knob of the
+# reference's pipeline, the service's own load (--bench's defaults) and the
+# lint corpus, whose headers name each file's expected finding
+FULL_MIDDLE_END = dict(saturate=True, widen=True, lint="strict")
+SERVICE_LOAD = dict(requests=64, clients=8)
+LINT_CORPUS = os.path.join(ROOT, "tests", "lint_corpus")
 
 
 def sh(*cmd: str) -> str:
@@ -2289,6 +2312,237 @@ def compile_side(report, benches, device="cuda") -> None:
                                                 for k, v in conc.items()))
 
 
+class TimedClient:
+    """Wraps a ``PtxServiceClient``: each ``compile`` call's wall time is
+    kept (``drive_requests`` reports only the total)."""
+
+    def __init__(self, client):
+        self.client = client
+        self.latencies = []
+
+    def compile(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = self.client.compile(*args, **kwargs)
+        self.latencies.append(time.perf_counter() - t0)
+        return out
+
+
+def corpus_expectations() -> dict:
+    """File stem -> (severity, code, uid) from each corpus file's
+    ``// expect:`` header line; None for a file that expects no finding."""
+    out = {}
+    for fname in sorted(os.listdir(LINT_CORPUS)):
+        if not fname.endswith(".ptx"):
+            continue
+        with open(os.path.join(LINT_CORPUS, fname)) as f:
+            m = re.search(r"^// expect: (\w+) ([\w-]+) @uid:(\d+)", f.read(), re.M)
+        out[fname[:-4]] = (m.group(1), m.group(2), int(m.group(3))) if m else None
+    return out
+
+
+def middle_end_service(report, benches, kernels, paper_out, device="cuda") -> None:
+    """Phase 13: the full middle-end and the compile service, fatal on any
+    failure.  (a) a ``PtxServiceServer(jobs=4)`` with a disk tier under
+    ``build/``; (b) ``POST /lint`` of the stencil benches (every one clean)
+    and of the lint corpus (the clean twins clean, every planted bug found
+    with its header's code); (c) ``POST /compile`` of the 19 KernelGen
+    sources with every knob of the middle-end, cold then again, each
+    response byte-equal to an in-process compile; (d) per stencil bench, a
+    widened, strictly linted plan whose schedule is the built ``paper``
+    kernel's, ``stencil_apply(mode="paper")`` on ``device`` within ``TOL`` of
+    the saturated synthesized PTX on the concrete emulator (bitwise equal to
+    the original's), and the paper sizes (``paper_out``: phase 4's paper
+    outputs) again, bitwise; (e) ``drive_requests`` against a second server
+    on the same directory, with no emulation."""
+    import random
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor as Pool
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.driver import Compiler
+    from repro_torch.core.frontend.cuda_lower import synthesize_cuda
+    from repro_torch.core.frontend.kernelgen import APPLICATIONS, SUITE, get_bench
+    from repro_torch.kernels.stencil import launch_counts, reset_launch_counts, stencil_apply
+    from repro_torch.launch.ptx_service import (
+        PtxServiceClient, PtxServiceServer, drive_requests)
+
+    t_phase = time.perf_counter()
+    rec = report.setdefault("middle_end", {})
+    names = [*SUITE, *APPLICATIONS]
+    options = dict(target="hopper", **FULL_MIDDLE_END)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="service-",
+                                     dir=os.path.join(ROOT, "build")) as cache_dir:
+        # (a) the service
+        with PtxServiceServer(port=0, jobs=COMPILE_JOBS, cache_dir=cache_dir) as server:
+            server.start()
+            client = PtxServiceClient(server.host, server.port)
+            if not client.healthz():
+                raise RuntimeError("service: /healthz failed")
+
+            # (b) lint
+            benches_lint = {n: client.lint(bench=n) for n in benches}
+            dirty = {n: r["findings"] for n, r in benches_lint.items() if not r["clean"]}
+            if dirty:
+                raise RuntimeError(f"service: /lint of the stencil benches: {dirty}")
+            corpus = {}
+            for stem, want in corpus_expectations().items():
+                with open(os.path.join(LINT_CORPUS, stem + ".ptx")) as f:
+                    r = client.lint(ptx=f.read())
+                got = {(x["severity"], x["code"], x["uid"]) for x in r["findings"]}
+                clean = want is None or want[0] == "NOTE"
+                if r["clean"] != clean or (want is not None and want not in got):
+                    raise RuntimeError(f"service: /lint {stem}: clean {r['clean']}, "
+                                       f"findings {sorted(got)}, expected {want}")
+                corpus[stem] = {"clean": r["clean"], "counts": r["counts"]}
+            lint_stats = client.stats()["lint_counters"]
+            rec["lint"] = {"benches": len(benches_lint), "corpus": corpus,
+                           "counters": lint_stats}
+            print(f"[service] /lint: {len(benches_lint)} stencil benches clean; corpus "
+                  + ", ".join(f"{k} {'clean' if v['clean'] else 'found'}"
+                              for k, v in corpus.items())
+                  + "; findings " + ", ".join(f"{k} {v}" for k, v in sorted(lint_stats.items())))
+
+            # (c) compile, cold then again
+            with Compiler(**FULL_MIDDLE_END) as cc:
+                local = {n: cc.compile(get_bench(n), target="hopper").ptx for n in names}
+            passes = {}
+            for tag in ("cold", "warm"):
+                before = client.stats()["cache"]
+                t0 = time.perf_counter()
+                with Pool(max_workers=COMPILE_JOBS) as pool:
+                    resps = dict(zip(names, pool.map(
+                        lambda n: client.compile(bench=n, **options), names)))
+                wall = time.perf_counter() - t0
+                after = client.stats()
+                moved = {k: after["cache"][k] - before[k]
+                         for k in ("hits", "misses", "disk_hits", "disk_misses")}
+                emulations = sum(not r["cached"] for resp in resps.values()
+                                 for r in resp["reports"])
+                for n, resp in resps.items():
+                    if resp["ptx"] != local[n]:
+                        raise RuntimeError(f"service: /compile {n} ({tag}) is not the "
+                                           "in-process compile's PTX")
+                    bad = [d for d in resp["diagnostics"]
+                           if d["severity"] == "ERROR" or d.get("code") == "sat-gate"]
+                    if bad:
+                        raise RuntimeError(f"service: /compile {n} ({tag}): {bad}")
+                want = dict(misses=len(names), hits=0) if tag == "cold" else \
+                    dict(misses=0, hits=len(names))
+                if any(moved[k] != v for k, v in want.items()) or \
+                        (tag == "warm" and emulations):
+                    raise RuntimeError(f"service: {tag} pass moved {moved} with "
+                                       f"{emulations} emulations, expected {want}")
+                passes[tag] = {"wall_s": wall, "req_per_s": len(names) / wall,
+                               "emulations": emulations, **moved}
+            stats = client.stats()
+            ptx_bytes = sum(len(t) for t in local.values())
+            rec["compile"] = {**passes, "ptx_bytes": ptx_bytes,
+                              "saturation_counters": stats["saturation_counters"],
+                              "lint_counters": stats["lint_counters"],
+                              "pass_times_s": stats["pass_times"]}
+            print(f"[service] /compile of {len(names)} sources with {options}: cold "
+                  f"{passes['cold']['wall_s']:.3f} s ({passes['cold']['req_per_s']:.1f} "
+                  f"req/s, {passes['cold']['misses']} misses), again "
+                  f"{passes['warm']['wall_s']:.4f} s ({passes['warm']['req_per_s']:.1f} req/s, "
+                  f"{passes['warm']['hits']} memory hits, {passes['warm']['emulations']} "
+                  f"emulations); {ptx_bytes} bytes of PTX, each response byte-equal to "
+                  "the in-process compile")
+            print("[service] counters: " + ", ".join(
+                f"{k} {v}" for k, v in sorted({**stats["saturation_counters"],
+                                                **stats["lint_counters"]}.items())))
+
+        # (d) the stencil main path through the full middle-end
+        planner = Compiler(widen=True, lint="strict")
+        saturated = Compiler(target="hopper", **FULL_MIDDLE_END)
+        conc = {}
+        reset_launch_counts()
+        for name, b in benches.items():
+            prog = b.program
+            plan = synthesize_cuda(prog, b.max_delta, compiler=planner)
+            kernel = kernels[(name, "paper")]
+            if not plan.consistent or tuple(plan.schedule) != kernel.spec.rows:
+                raise RuntimeError(f"middle-end: {name}: plan consistent {plan.consistent}, "
+                                   "schedule equal to the built kernel's "
+                                   f"{tuple(plan.schedule) == kernel.spec.rows}")
+            (orig, syn), arrays = concrete_versions(prog, b.max_delta, saturated,
+                                                    **CONCRETE_GRID)
+            if not np.array_equal(orig.view(np.uint32), syn.view(np.uint32)):
+                raise RuntimeError(f"middle-end: {name}: the saturated synthesized PTX "
+                                   "changed the concrete emulator's output")
+            interior = tuple(slice(h, orig.shape[ax] - h)
+                             for ax, h in enumerate(reversed(prog.halo[:prog.ndim])))
+            want_out = torch.from_numpy(syn[interior]).to(device)
+            got = stencil_apply(prog, arrays, {s: 0.3 for s in prog.scalars},
+                                mode="paper", max_delta=b.max_delta, device=device)
+            torch.testing.assert_close(got, want_out, **TOL)
+            conc[name] = {"shuffles": plan.n_shuffles,
+                          "max_abs_err": float((got - want_out).abs().max())}
+        for name, want in paper_out.items():
+            b = benches[name]
+            xs, sc = inputs(b.program, PAPER[name], SEED, device)
+            out = stencil_apply(b.program, xs, sc, mode="paper", max_delta=b.max_delta,
+                                device=device)
+            same = torch.equal(out.cpu(), want)
+            del xs, out
+            if not same:
+                raise RuntimeError(f"middle-end: {name} at {PAPER[name]} is not phase 4's "
+                                   "paper output bit for bit")
+        if device != "cpu":
+            torch.cuda.synchronize()
+        counts = launch_counts()
+        launches = {n: counts.get(kernels[(n, "paper")].symbol, 0) for n in benches}
+        need = {n: 1 + (n in paper_out) for n in benches}
+        if device != "cpu" and any(launches[n] < need[n] for n in benches):
+            raise RuntimeError(f"middle-end: paper launches {launches}, expected {need}")
+        sat = saturated.counters
+        rec["stencil"] = {"concrete": conc, "launches": launches, "paper_bitwise": list(paper_out),
+                          "saturation_counters": {k: v for k, v in sat.items()
+                                                  if k.startswith("sat_")},
+                          "plan_cache": planner.cache_stats.to_dict()}
+        planner.close()
+        saturated.close()
+        print(f"[middle-end] {len(benches)} benches planned by Compiler(widen=True, "
+              f"lint=\"strict\"): consistent, schedules equal to the built paper kernels'; "
+              f"saturated PTX ({sat.get('sat_rewrites', 0)} rewrites, "
+              f"{sat.get('sat_soundness_failures', 0)} gate failures) == original on the "
+              f"concrete emulator at {CONCRETE_GRID}, bitwise; stencil_apply(paper) on "
+              f"{device} within {TOL['atol']:g}, max|err| "
+              + " ".join(f"{k} {v['max_abs_err']:.1e}" for k, v in conc.items()))
+        print(f"[middle-end] {', '.join(paper_out)} at the paper's sizes: bitwise equal to "
+              f"phase 4's paper output; paper launches "
+              + " ".join(f"{k} {v}" for k, v in launches.items()))
+
+        # (e) the service's own load against a second server on the disk tier
+        rng = random.Random(SEED)
+        plan = [rng.choice(names) for _ in range(SERVICE_LOAD["requests"])]
+        with Compiler(jobs=COMPILE_JOBS, cache_dir=cache_dir, **options) as cc, \
+                PtxServiceServer(port=0, compiler=cc) as server:
+            server.start()
+            timed = TimedClient(PtxServiceClient(server.host, server.port))
+            wall = drive_requests(timed, plan, SERVICE_LOAD["clients"])
+            emulate_s = cc.pass_times.get("emulate-flows", 0.0)
+            stats = cc.cache_stats
+            if emulate_s != 0.0 or stats.disk_hits == 0:
+                raise RuntimeError(f"service load: emulate-flows {emulate_s} s, "
+                                   f"{stats.summary}; expected a disk-warm run")
+            lat = timed.latencies
+            rec["load"] = {**SERVICE_LOAD, "wall_s": wall, "req_per_s": len(plan) / wall,
+                           "p50_ms": statistics.median(lat) * 1e3,
+                           "p99_ms": statistics.quantiles(lat, n=100)[98] * 1e3,
+                           "cache": stats.to_dict(), "distinct": len(set(plan))}
+        load = rec["load"]
+        print(f"[service] load: {load['requests']} requests over {load['clients']} clients "
+              f"({load['distinct']} distinct sources) on a second server on the same disk "
+              f"directory: {load['wall_s']:.3f} s, {load['req_per_s']:.1f} req/s, p50 "
+              f"{load['p50_ms']:.2f} ms, p99 {load['p99_ms']:.2f} ms; {stats.summary}; "
+              "0 emulations")
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"[middle-end] phase 13 took {rec['seconds']:.1f} s")
+
+
 def mesh_path(report, kernels, entries) -> None:
     """Phases 9 and 10: the mesh path at world size 1 over NCCL, then the
     sharded MoE dispatch on the same group (its CPU reference first, on a
@@ -2494,6 +2748,7 @@ def main() -> int:
 
     # -- 4. the main path at the paper's sizes ------------------------------
     entries = []
+    paper_out = {}
     for name, shape in PAPER.items():
         b = benches[name]
         prog = b.program
@@ -2516,6 +2771,7 @@ def main() -> int:
                 raise RuntimeError(f"{name}: non-finite or misshapen output")
         if not all(torch.equal(outs["naive"], o) for o in outs.values()):
             raise RuntimeError(f"{name}: modes are not bitwise equal at {shape}")
+        paper_out[name] = outs["paper"].cpu()     # held against phase 13
         keep = outs["naive"]
         del outs, o
         torch.cuda.reset_peak_memory_stats()
@@ -2639,7 +2895,11 @@ def main() -> int:
     # -- 12. the compile side on the card's machine ---------------------------------
     compile_side(report, benches)
 
-    # -- 13. records -----------------------------------------------------------
+    # -- 13. the full middle-end and the compile service ------------------------------
+    middle_end_service(report, benches, kernels, paper_out)
+    del paper_out
+
+    # -- 14. records -----------------------------------------------------------
     report["card"] = card
     report["seconds"] = time.perf_counter() - t_start
     os.makedirs(os.path.dirname(REPORT), exist_ok=True)

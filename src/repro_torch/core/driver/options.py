@@ -1,6 +1,4 @@
-"""Mirrors ``src/repro/core/driver/options.py``; besides the imports, the
-options refuse the knobs that need modules not ported yet
-(:func:`~repro_torch.core.passes.context.require_ported`).
+"""Mirrors ``src/repro/core/driver/options.py`` (only the imports differ).
 
 Session configuration for the :class:`~repro.core.driver.Compiler`.
 
@@ -19,7 +17,7 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
-from ..passes.context import PipelineConfig, require_ported
+from ..passes.context import PipelineConfig
 
 #: CompilerOptions fields that map 1:1 onto PipelineConfig (the cache
 #: key); everything else is session-scoped execution policy.
@@ -119,8 +117,6 @@ class CompilerOptions:
         if self.lint not in ("off", "warn", "strict"):
             raise ValueError(f"lint must be 'off', 'warn' or 'strict', "
                              f"got {self.lint!r}")
-        require_ported(saturate=self.saturate, lint=self.lint,
-                       widen=self.widen, passes=self.passes or ())
 
     def pipeline_config(self) -> PipelineConfig:
         """The pipeline-facing view (what keys the result cache)."""

@@ -1,6 +1,4 @@
-"""Mirrors ``src/repro/core/passes/context.py``; besides the imports,
-:func:`require_ported` refuses the knobs whose passes need modules not
-ported yet (``egraph``, ``analysis.lint``, ``analysis.relational``).
+"""Mirrors ``src/repro/core/passes/context.py`` (only the imports differ).
 
 Kernel compilation context: one kernel + memoized analyses.
 
@@ -45,10 +43,6 @@ class PipelineConfig:
     lint: str = "off"           # verify-ptx static analysis: off | warn | strict
     widen: bool = False         # survivor-proof-widened synthesis gating
 
-    def __post_init__(self) -> None:
-        require_ported(saturate=self.saturate, lint=self.lint,
-                       widen=self.widen)
-
     def cache_token(self) -> Tuple:
         # the target participates as its *resolved* profile name so
         # "sm_61", "pascal" and a module-directive resolution all share
@@ -57,26 +51,6 @@ class PipelineConfig:
                 resolve_target(self.target).name, self.selection,
                 self.max_flows, self.max_steps, self.prune_flows,
                 self.saturate, self.lint, self.widen)
-
-
-#: passes whose modules are not ported yet; each raises when it runs
-UNPORTED_PASSES: Tuple[str, ...] = ("saturate", "extract", "verify-ptx")
-
-
-def require_ported(*, saturate: bool = False, lint: str = "off",
-                   widen: bool = False, passes: Iterable[str] = ()) -> None:
-    """Raise ``NotImplementedError`` for a knob or pass that needs the
-    e-graph or the static analyzer (ROADMAP Queue 1 item 3), instead of
-    running the plain pipeline in silence."""
-    asked = [f"{name}={value!r}" for name, value, off in
-             (("saturate", saturate, False), ("lint", lint, "off"),
-              ("widen", widen, False)) if value != off]
-    asked += [f"pass {name!r}" for name in passes if name in UNPORTED_PASSES]
-    if asked:
-        raise NotImplementedError(
-            f"{', '.join(asked)} needs the e-graph and static-analysis "
-            "modules (egraph, analysis.lint, analysis.relational), which "
-            "are not ported yet: ROADMAP Queue 1 item 3")
 
 
 # ---------------------------------------------------------------------------

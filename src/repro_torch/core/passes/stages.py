@@ -1,9 +1,4 @@
-"""Mirrors ``src/repro/core/passes/stages.py``; besides the imports, the
-passes ``saturate``, ``extract`` and ``verify-ptx`` raise
-``NotImplementedError`` where the reference runs modules not ported yet
-(``egraph``, ``analysis.lint``).  ``synthesize-shuffles`` keeps its
-``widen`` branch as the reference has it; ``PipelineConfig`` refuses
-``widen=True`` until ``analysis.relational`` is ported.
+"""Mirrors ``src/repro/core/passes/stages.py`` (only the imports differ).
 
 The PTXASW middle-end stages (paper Fig. 1) expressed as passes.
 
@@ -27,7 +22,7 @@ and reuse the memoized analyses.
 
 from __future__ import annotations
 
-from .context import KernelContext, require_ported
+from .context import KernelContext
 from .manager import register_pass
 
 
@@ -65,7 +60,11 @@ class Saturate:
     never share cache entries."""
 
     def run(self, ctx: KernelContext) -> None:
-        require_ported(passes=(self.name,))
+        if not ctx.config.saturate:
+            return
+        # late import: the egraph package pulls in targets + emulator
+        from ..egraph.saturate import run_saturate
+        run_saturate(ctx)
 
 
 @register_pass("extract")
@@ -77,7 +76,10 @@ class Extract:
     ``sat_soundness_failures``)."""
 
     def run(self, ctx: KernelContext) -> None:
-        require_ported(passes=(self.name,))
+        if not ctx.config.saturate:
+            return
+        from ..egraph.extract import run_extract
+        run_extract(ctx)
 
 
 @register_pass("verify-ptx")
@@ -90,7 +92,15 @@ class VerifyPtx:
     results never share cache entries)."""
 
     def run(self, ctx: KernelContext) -> None:
-        require_ported(passes=(self.name,))
+        # late import: the analysis package pulls in the driver's
+        # Severity enum
+        from ..analysis.lint import run_lint
+        from ..analysis.findings import finding_counters
+        findings = run_lint(ctx)
+        ctx.products["findings"] = findings
+        counters = ctx.products.setdefault("lint_counters", {})
+        for name, n in finding_counters(findings).items():
+            counters[name] = counters.get(name, 0) + n
 
 
 def _detection(ctx: KernelContext):

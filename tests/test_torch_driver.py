@@ -2,7 +2,7 @@
 the JAX package's: the printed PTX and the reports of every KernelGen
 source under every target, the codegen modes and cost selection, the five
 source forms, ``compile_many``'s dedup, the legacy shims, and the knobs
-whose modules are not ported yet."""
+that run the e-graph and the static analyzer."""
 
 import dataclasses
 import enum
@@ -251,39 +251,52 @@ def _strip_times(obj):
     return obj
 
 
-#: each knob that needs ``egraph``, ``analysis.lint`` or ``analysis.relational``
-UNPORTED = [dict(saturate=True), dict(lint="warn"), dict(lint="strict"), dict(widen=True),
-            dict(passes=("emulate-flows", "saturate", "extract", "detect-shuffles")),
-            dict(passes=("emulate-flows", "verify-ptx", "detect-shuffles"))]
+#: each knob that runs ``egraph``, ``analysis.lint`` or ``analysis.relational``
+KNOBS = [dict(saturate=True), dict(lint="warn"), dict(lint="strict"), dict(widen=True),
+         dict(passes=("emulate-flows", "saturate", "extract", "detect-shuffles")),
+         dict(passes=("emulate-flows", "verify-ptx", "detect-shuffles"))]
 
 
-@pytest.mark.parametrize("knob", UNPORTED, ids=lambda k: "-".join(map(str, k.values())))
-def test_unported_knobs_raise(knob):
-    """None runs the plain pipeline in silence, none ends in an ImportError."""
-    src = kernelgen.get_bench("jacobi")
-    cc = driver.Compiler()
-    for call in (lambda: driver.Compiler(**knob), lambda: driver.CompilerOptions(**knob),
-                 lambda: cc.compile(src, **knob), lambda: cc.analyze(src, **knob),
-                 lambda: cc.variants(src, **knob), lambda: cc.prepare(src, **knob)):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
-            call()
+def _outcome(call):
+    """A call's result, or its error's type and message."""
+    try:
+        return call()
+    except (ValueError, TypeError) as e:
+        return (type(e).__name__, str(e))
+
+
+@pytest.mark.parametrize("knob", KNOBS, ids=lambda k: "-".join(map(str, k.values())))
+def test_knobs_match_reference(knob):
+    """``compile``/``analyze``/``variants``/``prepare`` with the knob per
+    call and per session, and a hand-built ``PassPipeline``, as the
+    reference's."""
+    src, ref_src = kernelgen.get_bench("tricubic"), ref_kernelgen.get_bench("tricubic")
+    for cc, ref_cc, kw in ((driver.Compiler(), ref_driver.Compiler(), knob),
+                           (driver.Compiler(**knob), ref_driver.Compiler(**knob), {})):
+        for method in ("compile", "analyze"):
+            res = getattr(cc, method)(src, target="hopper", **kw)
+            ref = getattr(ref_cc, method)(ref_src, target="hopper", **kw)
+            assert_same_result(res, ref)
+            assert [f.to_dict() for f in res.findings] == [f.to_dict() for f in ref.findings]
+        got = _outcome(lambda: cc.variants(src, targets=("pascal", "hopper"), **kw))
+        want = _outcome(lambda: ref_cc.variants(ref_src, targets=("pascal", "hopper"), **kw))
+        if isinstance(want, tuple):
+            assert got == want and "passes=" in got[1]
+        else:
+            assert list(got) == list(want) == ["pascal", "hopper"]
+            for name in got:
+                assert_same_result(dataclasses.replace(got[name], cache_stats=None),
+                                   dataclasses.replace(want[name], cache_stats=None))
+        prep, ref_prep = cc.prepare(src, **kw), ref_cc.prepare(ref_src, **kw)
+        assert prep.key == ref_prep.key
+        assert view(prep.opts) == view(ref_prep.opts)
+        assert cc.cache_stats.misses == ref_cc.cache_stats.misses > 0
     fields = {k: v for k, v in knob.items() if k != "passes"}
-    if fields:
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
-            passes.PipelineConfig(**fields)
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
-            cc.compile(src, _options_bypassing_checks(fields))
-    else:
-        pipe = passes.PassPipeline(passes=knob["passes"])
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
-            pipe.run_kernel(lower_to_ptx(src.program))
-    assert cc.cache_stats.misses == 0
-
-
-def _options_bypassing_checks(fields):
-    """Options that carry the knob past their own construction, to show
-    that ``Compiler._resolve`` refuses them too."""
-    opts = driver.CompilerOptions()
-    for k, v in fields.items():
-        object.__setattr__(opts, k, v)
-    return opts
+    pipe = passes.PassPipeline(passes=knob.get("passes"), config=passes.PipelineConfig(**fields))
+    ref_pipe = ref_passes.PassPipeline(passes=knob.get("passes"),
+                                       config=ref_passes.PipelineConfig(**fields))
+    assert pipe.pass_names == ref_pipe.pass_names
+    k, rep = pipe.run_kernel(lower_to_ptx(src.program))
+    ref_k, ref_rep = ref_pipe.run_kernel(ref_lower(ref_src.program))
+    assert print_kernel(k) == ref_print_kernel(ref_k)
+    assert view(rep) == view(ref_rep)

@@ -170,5 +170,7 @@ def test_port_imports_neither_jax_nor_reference():
                 "kernels.conv1d.ops", "kernels.ssd.ops",
                 "kernels.flash_attention.ops", "kernels.flash_attention.ref",
                 "kernels.autograd", "train.optim", "train.step", "checkpoint.store",
-                "runtime.health", "launch.train"):
+                "runtime.health", "launch.train", "launch.ptx_service",
+                "core.egraph", "core.egraph.extract", "core.egraph.verify",
+                "core.analysis.lint", "core.analysis.relational"):
         assert f"repro_torch.{mod}" in names, mod

@@ -30,9 +30,6 @@ from repro_torch.core.passes import diskcache
 from repro_torch.core.ptx import print_kernel
 
 SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
-#: analyses the reference registers from modules the port has not copied
-#: (``analysis.relational``), present only once something imported them
-NOT_PORTED_ANALYSES = {"relational", "survivors"}
 
 
 def view(obj):
@@ -49,18 +46,21 @@ def view(obj):
         return tuple(view(x) for x in obj)
     if isinstance(obj, (set, frozenset)):
         return tuple(sorted(view(x) for x in obj))
+    if type(obj).__module__.split(".")[0] in ("repro", "repro_torch"):
+        # a symbolic term or fact: its class and its printed form
+        return (type(obj).__name__, repr(obj))
     return obj
 
 
 def test_registries_match_reference():
     # the uniformity analyses register when ``core.analysis`` is first
-    # imported, which a pipeline does at its first run: import both here
-    import repro.core.analysis  # noqa: F401
-    import repro_torch.core.analysis  # noqa: F401
+    # imported, which a pipeline does at its first run, and the relational
+    # ones when a lint or widened run first needs them: import both here
+    import repro.core.analysis.relational  # noqa: F401
+    import repro_torch.core.analysis.relational  # noqa: F401
 
     assert sorted(passes.PASS_REGISTRY) == sorted(ref_passes.PASS_REGISTRY)
-    assert sorted(passes.ANALYSIS_REGISTRY) == \
-        sorted(set(ref_passes.ANALYSIS_REGISTRY) - NOT_PORTED_ANALYSES)
+    assert sorted(passes.ANALYSIS_REGISTRY) == sorted(ref_passes.ANALYSIS_REGISTRY)
     for name in ("ANALYSIS_PASSES", "SYNTHESIS_PASSES", "DEFAULT_PASSES"):
         assert getattr(passes, name) == getattr(ref_passes, name)
 
@@ -68,6 +68,9 @@ def test_registries_match_reference():
 @pytest.mark.parametrize("name", ["jacobi", "whispering", "tricubic", "matvec", "hypterm"])
 def test_analyses_match_reference(name):
     """Every analysis the port registers, on one kernel context each."""
+    import repro.core.analysis.relational  # noqa: F401
+    import repro_torch.core.analysis.relational  # noqa: F401
+
     ctx = passes.KernelContext(lower_to_ptx(kernelgen.get_bench(name).program))
     ref_ctx = ref_passes.KernelContext(ref_lower(ref_kernelgen.get_bench(name).program))
     for analysis in sorted(passes.ANALYSIS_REGISTRY):
