@@ -179,7 +179,24 @@ Phases, each fatal on failure:
    sizes bitwise equal to phase 4's paper output, launch counts read
    around it; then ``drive_requests`` (64 requests, 8 clients) against a
    second server on the same directory: req/s, p50/p99, no emulation;
-14. a ``kernels`` JSON line, and as the last line the device record.
+14. the fleet, on the host but for the stencil launches: the port's fleet
+   load test (``launch.fleet.smoke.run_smoke``, 24 requests, 6 clients) in
+   subprocesses, a cache tier and replicas A, B (each its own disk
+   directory, both on the tier) and C (1 worker, queue capacity 1), its
+   five contracts held here from the summary (coalesce: one miss and one
+   distinct payload; warm-remote: B's remote hits equal to its plan's
+   distinct sources, no emulation; at least one 503 from C; every drain
+   exit code 0), each phase's wall, req/s and p50/p99 and the tier's
+   ``/stats`` printed, B's req/s beside phase 13(e)'s; then two
+   ``Compiler`` sessions, each over a ``CompileCache`` whose only tier
+   below memory is a ``RemoteCache`` on one in-process
+   ``CacheTierServer``, plan the 13 benches (A: 13 misses and 13 puts;
+   B: 13 remote hits, no emulation, each plan consistent, its schedule
+   the built ``paper`` kernel's, its detection pairs A's), and
+   ``stencil_apply(mode="paper")`` on the card on phase 13(d)'s inputs is
+   bitwise equal to its outputs and within ``TOL`` of the concrete
+   emulator, with launch counts read around it;
+15. a ``kernels`` JSON line, and as the last line the device record.
 
 Run from the repository root:  python3 chip_smoke.py
 Needs one CUDA device and nvcc for sm_90a; exits non-zero without them.
@@ -290,6 +307,8 @@ COMPILE_JOBS = 4
 # lint corpus, whose headers name each file's expected finding
 FULL_MIDDLE_END = dict(saturate=True, widen=True, lint="strict")
 SERVICE_LOAD = dict(requests=64, clients=8)
+# the fleet (phase 14): its own load test at the reference CLI's defaults
+FLEET_LOAD = dict(requests=24, clients=6)
 LINT_CORPUS = os.path.join(ROOT, "tests", "lint_corpus")
 
 
@@ -2340,7 +2359,7 @@ def corpus_expectations() -> dict:
     return out
 
 
-def middle_end_service(report, benches, kernels, paper_out, device="cuda") -> None:
+def middle_end_service(report, benches, kernels, paper_out, device="cuda") -> dict:
     """Phase 13: the full middle-end and the compile service, fatal on any
     failure.  (a) a ``PtxServiceServer(jobs=4)`` with a disk tier under
     ``build/``; (b) ``POST /lint`` of the stencil benches (every one clean)
@@ -2353,7 +2372,9 @@ def middle_end_service(report, benches, kernels, paper_out, device="cuda") -> No
     the saturated synthesized PTX on the concrete emulator (bitwise equal to
     the original's), and the paper sizes (``paper_out``: phase 4's paper
     outputs) again, bitwise; (e) ``drive_requests`` against a second server
-    on the same directory, with no emulation."""
+    on the same directory, with no emulation.  Returns (d)'s inputs, the
+    concrete emulator's interior and the ``paper`` outputs per bench, on the
+    host, for phase 14."""
     import random
     import tempfile
     from concurrent.futures import ThreadPoolExecutor as Pool
@@ -2457,7 +2478,7 @@ def middle_end_service(report, benches, kernels, paper_out, device="cuda") -> No
         # (d) the stencil main path through the full middle-end
         planner = Compiler(widen=True, lint="strict")
         saturated = Compiler(target="hopper", **FULL_MIDDLE_END)
-        conc = {}
+        conc, held = {}, {}
         reset_launch_counts()
         for name, b in benches.items():
             prog = b.program
@@ -2480,6 +2501,7 @@ def middle_end_service(report, benches, kernels, paper_out, device="cuda") -> No
             torch.testing.assert_close(got, want_out, **TOL)
             conc[name] = {"shuffles": plan.n_shuffles,
                           "max_abs_err": float((got - want_out).abs().max())}
+            held[name] = {"arrays": arrays, "emulated": want_out.cpu(), "paper": got.cpu()}
         for name, want in paper_out.items():
             b = benches[name]
             xs, sc = inputs(b.program, PAPER[name], SEED, device)
@@ -2541,6 +2563,137 @@ def middle_end_service(report, benches, kernels, paper_out, device="cuda") -> No
               "0 emulations")
     rec["seconds"] = time.perf_counter() - t_phase
     print(f"[middle-end] phase 13 took {rec['seconds']:.1f} s")
+    return held
+
+
+def fleet_phase(report, benches, kernels, held, device="cuda") -> None:
+    """Phase 14: the fleet, fatal on any failure.  (a) the port's own fleet
+    load test (``launch.fleet.smoke.run_smoke``): a cache tier and three
+    replica processes, its five contracts held here from the summary;
+    (b) the stencil main path through the fleet's network cache tier: two
+    ``Compiler`` sessions with no cache of their own but a ``RemoteCache``
+    on one in-process ``CacheTierServer``, the second planning every bench
+    from remote hits with no emulation; the ``paper`` kernels launched on
+    ``device`` on phase 13(d)'s inputs (``held``), bitwise equal to its
+    outputs and within ``TOL`` of the concrete emulator."""
+    import torch
+
+    from repro_torch.core.driver import Compiler
+    from repro_torch.core.frontend.cuda_lower import synthesize_cuda
+    from repro_torch.core.passes.cache import CompileCache
+    from repro_torch.kernels.stencil import launch_counts, reset_launch_counts, stencil_apply
+    from repro_torch.launch.fleet import CacheTierServer, RemoteCache
+    from repro_torch.launch.fleet.smoke import run_smoke
+
+    t_phase = time.perf_counter()
+    rec = report.setdefault("fleet", {})
+
+    # (a) the fleet's own load test, in subprocesses (run_smoke kills its
+    # children in a finally, so a failed phase leaves no port held)
+    summary = run_smoke(seed=SEED, **FLEET_LOAD)
+    ph = summary["phases"]
+    warm, bp = ph["warm_remote"], ph["backpressure"]
+    faults = []
+    if ph["coalesce"]["new_misses"] != 1 or ph["coalesce"]["distinct_payloads"] != 1:
+        faults.append(f"coalesce {ph['coalesce']}")
+    if warm["remote_hits"] != warm["distinct_sources"] or warm["emulate_flows_s"] != 0.0:
+        faults.append(f"warm-remote {warm}")
+    if bp["rejected_503"] < 1:
+        faults.append(f"backpressure {bp}")
+    if any(code != 0 for code in ph["drain"]["exit_codes"].values()):
+        faults.append(f"drain {ph['drain']}")
+    if faults:
+        raise RuntimeError("fleet smoke: " + "; ".join(faults))
+    for name in ("cold", "coalesce", "warm_remote", "backpressure"):
+        p = ph[name]
+        lat = p["latency"]
+        print(f"[fleet] {name:<12} wall {p['wall_s']:.3f} s, {p['req_per_s']:.2f} req/s, "
+              f"total latency p50 {lat['p50_s'] * 1e3:.1f} ms p99 {lat['p99_s'] * 1e3:.1f} ms "
+              f"(log2 bucket bounds; mean {lat['mean_s'] * 1e3:.2f} ms, max "
+              f"{lat['max_s'] * 1e3:.2f} ms, {lat['count']} requests)")
+    print(f"[fleet] coalesce: {ph['coalesce']['k']} identical requests, "
+          f"{ph['coalesce']['new_misses']} miss, {ph['coalesce']['distinct_payloads']} "
+          f"distinct payload; warm-remote: {warm['remote_hits']} remote hits for "
+          f"{warm['distinct_sources']} distinct sources, emulate-flows "
+          f"{warm['emulate_flows_s']} s; backpressure: {bp['rejected_503']} 503s, queue "
+          f"{bp['queue']}; drain exit codes {ph['drain']['exit_codes']}")
+    print(f"[fleet] cache server /stats: {json.dumps(summary['cache_server'])}")
+    print(f"[fleet] replica B warm-remote {warm['req_per_s']:.2f} req/s "
+          f"({warm['wall_s']:.3f} s for {warm['latency']['count']} requests, "
+          f"{FLEET_LOAD['clients']} clients) beside phase 13(e)'s single server "
+          f"on a warm disk {report['middle_end']['load']['req_per_s']:.2f} req/s")
+    rec["smoke"] = summary
+
+    # (b) the stencil main path through the fleet's network cache tier
+    with CacheTierServer(port=0) as tier:
+        tier.start()
+        sessions, plans, remotes = {}, {}, {}
+        for tag in ("A", "B"):
+            remotes[tag] = RemoteCache(tier.url)
+            sessions[tag] = Compiler(cache=CompileCache(remote=remotes[tag]))
+            plans[tag] = {name: synthesize_cuda(b.program, b.max_delta,
+                                                compiler=sessions[tag])
+                          for name, b in benches.items()}
+        stats = {t: c.cache_stats.snapshot() for t, c in sessions.items()}
+        n = len(benches)
+        if stats["A"].misses != n or remotes["A"].counters["puts"] != n:
+            raise RuntimeError(f"fleet tier: session A {stats['A'].summary}, remote "
+                               f"{remotes['A'].counters}; expected {n} misses and puts")
+        emulated = sessions["B"].pass_times.get("emulate-flows")
+        if stats["B"].remote_hits != n or emulated is not None:
+            raise RuntimeError(f"fleet tier: session B {stats['B'].summary}, "
+                               f"emulate-flows {emulated}; expected {n} remote hits "
+                               "and no emulation")
+        pairs = {}
+        for name in benches:
+            plan = plans["B"][name]
+            key = {t: [(p.dst_uid, p.src_uid, p.delta) for p in plans[t][name].detection.pairs]
+                   for t in plans}
+            if not plan.consistent or tuple(plan.schedule) != kernels[(name, "paper")].spec.rows \
+                    or key["A"] != key["B"]:
+                raise RuntimeError(f"fleet tier: {name}: consistent {plan.consistent}, "
+                                   "schedule equal to the built paper kernel's "
+                                   f"{tuple(plan.schedule) == kernels[(name, 'paper')].spec.rows}"
+                                   f", detection pairs equal to session A's "
+                                   f"{key['A'] == key['B']}")
+            pairs[name] = len(key["B"])
+        tier_stats = tier.stats_payload()
+        for c in sessions.values():
+            c.close()
+
+    reset_launch_counts()
+    errs = {}
+    for name, b in benches.items():
+        h = held[name]
+        out = stencil_apply(b.program, h["arrays"], {s: 0.3 for s in b.program.scalars},
+                            mode="paper", max_delta=b.max_delta, device=device).cpu()
+        if not torch.equal(out, h["paper"]):
+            raise RuntimeError(f"fleet tier: {name}: paper output is not phase 13(d)'s "
+                               "bit for bit")
+        torch.testing.assert_close(out, h["emulated"], **TOL)
+        errs[name] = float((out - h["emulated"]).abs().max())
+    if device != "cpu":
+        torch.cuda.synchronize()
+    counts = launch_counts()
+    launches = {n: counts.get(kernels[(n, "paper")].symbol, 0) for n in benches}
+    if device != "cpu" and any(v < 1 for v in launches.values()):
+        raise RuntimeError(f"fleet tier: paper launches {launches}, expected >= 1 each")
+    rec["tier"] = {"session_a": stats["A"].to_dict(), "session_b": stats["B"].to_dict(),
+                   "remote_a": remotes["A"].counters, "remote_b": remotes["B"].counters,
+                   "server": tier_stats, "pairs": pairs, "launches": launches,
+                   "max_abs_err": errs}
+    print(f"[fleet] tier: session A {stats['A'].summary}, remote {remotes['A'].counters}; "
+          f"session B {stats['B'].summary}, remote {remotes['B'].counters}, no "
+          f"emulate-flows; server {tier_stats['entries']} entries, {tier_stats['bytes']} "
+          "bytes")
+    print(f"[fleet] {len(benches)} plans from remote hits: consistent, schedules equal to "
+          "the built paper kernels', detection pairs equal to session A's ("
+          + " ".join(f"{k} {v}" for k, v in pairs.items()) + "); stencil_apply(paper) on "
+          f"{device} at {CONCRETE_GRID} bitwise equal to phase 13(d), max|err| vs the "
+          "concrete emulator " + " ".join(f"{k} {v:.1e}" for k, v in errs.items())
+          + "; paper launches " + " ".join(f"{k} {v}" for k, v in launches.items()))
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"[fleet] phase 14 took {rec['seconds']:.1f} s")
 
 
 def mesh_path(report, kernels, entries) -> None:
@@ -2896,10 +3049,15 @@ def main() -> int:
     compile_side(report, benches)
 
     # -- 13. the full middle-end and the compile service ------------------------------
-    middle_end_service(report, benches, kernels, paper_out)
+    held = middle_end_service(report, benches, kernels, paper_out)
     del paper_out
 
-    # -- 14. records -----------------------------------------------------------
+    # -- 14. the fleet: replicas over a network cache tier, and the stencil plans
+    #        taken from that tier ---------------------------------------------------
+    fleet_phase(report, benches, kernels, held)
+    del held
+
+    # -- 15. records -----------------------------------------------------------
     report["card"] = card
     report["seconds"] = time.perf_counter() - t_start
     os.makedirs(os.path.dirname(REPORT), exist_ok=True)

@@ -19,7 +19,7 @@ With a :class:`~repro.core.passes.diskcache.DiskCache` attached
 compile, disk hits are promoted into memory, and *separate processes*
 sharing one directory amortize emulation across the fleet.  A network
 tier (``CompileCache(remote=...)``, speaking the same schema-versioned
-wire form — see :mod:`repro.launch.fleet.remote_cache`) slots in below
+wire form — see :mod:`repro_torch.launch.fleet.remote_cache`) slots in below
 disk, so replicas without a shared filesystem amortize it too:
 memory → disk → remote → compile.
 """
@@ -172,7 +172,7 @@ class CompileCache:
     promotes disk hits into memory; ``put`` writes through to both.
     With ``remote=`` a network tier (any object with the DiskCache
     ``load``/``store`` signature, e.g.
-    :class:`repro.launch.fleet.RemoteCache`) slots in *below* disk:
+    :class:`repro_torch.launch.fleet.RemoteCache`) slots in *below* disk:
     lookups tier memory → disk → remote → compile, remote hits are
     promoted into both local tiers, and puts write through to all
     three — replicas without a shared filesystem still amortize

@@ -82,6 +82,14 @@ class _PackageUnpickler(pickle.Unpickler):
         raise pickle.UnpicklingError(f"entry names {module}.{name}")
 
 
+def loads_report(blob: bytes) -> object:
+    """Unpickle a stored report, resolving only :data:`PACKAGE`'s classes
+    and plain builtins (anything else raises ``UnpicklingError``).
+
+    Shared by the disk tier and the fleet's network tier."""
+    return _PackageUnpickler(io.BytesIO(blob)).load()
+
+
 def entry_digest(key: str) -> str:
     """Storage name for a :meth:`CompileCache.key` content hash.
 
@@ -145,7 +153,7 @@ class DiskCache:
             module = parse(ptx_text)
             if len(module.kernels) != 1:
                 return None
-            report = _PackageUnpickler(io.BytesIO(report_blob)).load()
+            report = loads_report(report_blob)
             if not dataclasses.is_dataclass(report) \
                     or isinstance(report, type):
                 return None

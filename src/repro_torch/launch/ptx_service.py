@@ -1,11 +1,9 @@
-"""Mirrors ``src/repro/launch/ptx_service.py``; besides the imports,
-``remote_cache=`` (``--remote-cache``) raises ``NotImplementedError``
-until the fleet (``launch.fleet``) is ported.
+"""Mirrors ``src/repro/launch/ptx_service.py`` (only the imports differ).
 
 PTX compile service: the driver facade behind an HTTP front-end.
 
 The serving shape the ROADMAP's north star needs, stdlib-only: one
-:class:`repro.core.driver.Compiler` session fronting a
+:class:`repro_torch.core.driver.Compiler` session fronting a
 ``ThreadingHTTPServer``.  Replica processes pointed at one shared
 ``--cache-dir`` amortize symbolic emulation through the disk-backed
 cache tier — the second replica serves every repeated kernel warm from
@@ -220,11 +218,17 @@ class PtxServiceServer:
                     "not both — the cache tiers belong to the session")
             self.compiler = compiler
         elif remote_cache is not None:
-            # the fleet's network cache tier is not ported yet
-            raise NotImplementedError(
-                "remote_cache= needs the fleet's network cache tier "
-                "(launch.fleet), which is not ported yet: ROADMAP Queue 1, "
-                "the fleet item")
+            # tiered fleet cache: memory -> disk (optional) -> remote.
+            # Built here rather than inside Compiler so the core stays
+            # ignorant of the serving subsystem's network tier.
+            from repro_torch.core.passes.cache import CompileCache
+            from repro_torch.core.passes.diskcache import DiskCache
+            from repro_torch.launch.fleet.remote_cache import RemoteCache
+            tiered = CompileCache(
+                disk=DiskCache(cache_dir) if cache_dir is not None else None,
+                remote=RemoteCache(remote_cache))
+            self.compiler = Compiler(jobs=jobs, selection=selection,
+                                     cache=tiered)
         else:
             self.compiler = Compiler(jobs=jobs, selection=selection,
                                      cache_dir=cache_dir)
@@ -794,8 +798,8 @@ def main(argv: Optional[Sequence[str]] = None):
                          "(replica fleets point every process here)")
     ap.add_argument("--remote-cache", default=None, metavar="URL",
                     help="http://host:port of a fleet cache server "
-                         "(network tier below disk; not ported yet: "
-                         "raises NotImplementedError)")
+                         "(network tier below disk; see "
+                         "repro_torch.launch.fleet)")
     ap.add_argument("--max-body-bytes", type=int,
                     default=DEFAULT_MAX_BODY_BYTES,
                     help="largest request body accepted before 413")

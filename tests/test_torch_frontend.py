@@ -172,5 +172,8 @@ def test_port_imports_neither_jax_nor_reference():
                 "kernels.autograd", "train.optim", "train.step", "checkpoint.store",
                 "runtime.health", "launch.train", "launch.ptx_service",
                 "core.egraph", "core.egraph.extract", "core.egraph.verify",
-                "core.analysis.lint", "core.analysis.relational"):
+                "core.analysis.lint", "core.analysis.relational",
+                "launch.fleet", "launch.fleet.__main__", "launch.fleet.coalesce",
+                "launch.fleet.frontend", "launch.fleet.queue", "launch.fleet.remote_cache",
+                "launch.fleet.smoke", "launch.fleet.stats"):
         assert f"repro_torch.{mod}" in names, mod

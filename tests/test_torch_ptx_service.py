@@ -2,9 +2,9 @@
 with the JAX package's: both servers answer the same ``/compile``,
 ``/lint``, ``/stats`` and ``/healthz`` requests with equal payloads (times
 stripped), the same 400/404/413 refusals, the clients' retry and
-backpressure (503) counters, the ``--bench`` and demo modes, the fleet
-hook ``remote_cache=`` refused until the fleet is ported, and the port's
-service in a subprocess that cannot import ``repro``."""
+backpressure (503) counters, the ``--bench`` and demo modes, the fleet's
+network cache tier behind ``remote_cache=``, and the port's service in a
+subprocess that cannot import ``repro``."""
 
 import json
 import os
@@ -291,11 +291,34 @@ def test_cli_rejects_bad_bench_list_like_reference(capsys):
     assert "unknown bench(es) nope" in errs["port"]
 
 
-def test_remote_cache_is_refused_until_the_fleet_is_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="fleet"):
-        service.PtxServiceServer(remote_cache="http://127.0.0.1:9")
-    with pytest.raises(NotImplementedError, match="fleet"):
-        service.PtxServiceServer(remote_cache="http://127.0.0.1:9", cache_dir=str(tmp_path))
+def test_remote_cache_serves_a_second_replica_warm(tmp_path):
+    """Two servers, each with a disk directory of its own, on one fleet
+    cache tier: the second serves a source from the remote tier with no
+    emulation, and its ``/stats`` ``"remote"`` section names the tier."""
+    from repro_torch.launch.fleet import CacheTierServer
+
+    with CacheTierServer() as tier:
+        tier.start()
+        payloads = []
+        for name in ("first", "second"):
+            with service.PtxServiceServer(remote_cache=tier.url, jobs=1,
+                                          cache_dir=str(tmp_path / name)) as srv:
+                srv.start()
+                client = service.PtxServiceClient(srv.host, srv.port)
+                payloads.append(client.compile(bench="wave13pt"))
+                stats = client.stats()
+        assert payloads[0]["ptx"] == payloads[1]["ptx"]
+        assert payloads[1]["reports"][0]["cached"]
+        assert stats["cache"]["remote_hits"] == 1 and stats["cache"]["disk_misses"] == 1
+        assert "emulate-flows" not in stats["pass_times"]
+        remote = stats["remote"]
+        assert remote["url"] == tier.url
+        assert {k: remote[k] for k in ("gets", "hits", "misses", "puts", "errors")} == \
+            {"gets": 1, "hits": 1, "misses": 0, "puts": 0, "errors": 0}
+        assert len(tier) == 1
+
+
+def test_compiler_and_remote_cache_are_exclusive():
     with pytest.raises(ValueError, match="not both"):
         service.PtxServiceServer(compiler=Compiler(), remote_cache="http://127.0.0.1:9")
 
