@@ -4,7 +4,10 @@ Each source is compiled once, by one ``nvcc`` call, into a shared
 library with a plain C interface under ``build/repro_torch/``, named by
 the SHA-256 of everything that goes into it (the source, the headers it
 may include and the flags).  A library already on disk is loaded as it
-is; a library loaded once is kept for the life of the process.
+is; a library loaded once is kept for the life of the process.  Two
+counters (:mod:`repro_torch.tracing`) take the time: ``build.nvcc`` (an
+``nvcc`` call, with its seconds) and ``build.disk`` (a library loaded
+from ``build/``, built in this process or before, with its seconds).
 :func:`sass_counts` reads a built library's machine code.
 """
 
@@ -21,6 +24,8 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, Sequence
+
+from repro_torch.tracing import count
 
 #: the repository root's ``build/``, listed in ``.gitignore``
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "repro_torch"
@@ -80,7 +85,10 @@ def build_library(source: str, include_dirs: Sequence[Path]) -> Library:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                                f"{proc.stdout}{proc.stderr}")
         os.replace(tmp, so)        # publish atomically
+        count("build.nvcc", seconds)
+    t0 = time.perf_counter()
     lib = Library(ctypes.CDLL(str(so)), so, seconds)
+    count("build.disk", time.perf_counter() - t0)
     _LOADED[key] = lib
     return lib
 

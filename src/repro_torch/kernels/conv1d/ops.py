@@ -16,12 +16,14 @@ tensor x views.
 
 from __future__ import annotations
 
+import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Tuple
 
 import torch
 
 from repro_torch.build import build_library
+from repro_torch.tracing import count
 from ..autograd import PLAIN_DEVICES, with_plain_grad
 from . import ref as conv_ref
 from .conv1d import MODES, Conv1dKernel, cuda_source, make_spec
@@ -34,12 +36,15 @@ _KERNELS: Dict[Tuple[str, int], Conv1dKernel] = {}
 
 def build_kernels(items: Iterable[Tuple[str, int]]) -> List[Conv1dKernel]:
     """Build every ``(mode, W)`` not built yet with one ``nvcc`` call;
-    returns the kernels in the order given."""
+    returns the kernels in the order given.  Each schedule's detection
+    (:func:`make_spec`) is counted as ``kernels.synthesize``."""
     items = list(items)
     todo = {}
     for mode, W in items:
         if (mode, W) not in _KERNELS and (mode, W) not in todo:
+            t0 = time.perf_counter()
             todo[(mode, W)] = make_spec(mode, W)
+            count("kernels.synthesize", time.perf_counter() - t0)
     if todo:
         lib = build_library(cuda_source(list(todo.values())), [CSRC])
         for key, spec in todo.items():
@@ -70,6 +75,6 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if x.device.type in PLAIN_DEVICES:
         return conv_ref.causal_conv1d(x, w, b, activation=activation)
     (kernel,) = build_kernels([(mode, w.shape[0])])
-    return with_plain_grad(lambda *a: kernel(*a, activation=activation),
+    return with_plain_grad("conv1d", lambda *a: kernel(*a, activation=activation),
                            lambda *a: conv_ref.causal_conv1d(*a, activation=activation),
                            x, w, b)

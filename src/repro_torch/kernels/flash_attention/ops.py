@@ -179,6 +179,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         check_contract(q, k, v, causal)
         return attn_ref.attention_ref(q, k, v, causal=causal)
     kernel = build_kernel()
-    return with_plain_grad(lambda *a: kernel(*a, causal),
+    return with_plain_grad("flash", lambda *a: kernel(*a, causal),
                            lambda *a: attn_ref.attention_ref(*a, causal=causal),
                            q, k, v)

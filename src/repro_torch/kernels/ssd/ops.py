@@ -192,6 +192,6 @@ def ssd(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if xh.device.type in PLAIN_DEVICES:
         return ssd_ref.ssd_chunked(xh, dt, A, Bm, Cm, chunk)
     kernel = build_kernel()
-    return with_plain_grad(lambda *a: kernel(*a, chunk),
+    return with_plain_grad("ssd", lambda *a: kernel(*a, chunk),
                            lambda *a: ssd_ref.ssd_chunked(*a, chunk),
                            xh, dt, A, Bm, Cm)

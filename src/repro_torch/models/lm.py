@@ -72,6 +72,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.collectives import batch_sum, gather_param, local_of
 from repro_torch.sharding.rules import constrain_batch, placements, shard_batch_spec
+from repro_torch.tracing import span
 from . import attention as attn
 from . import mamba2 as m2
 from . import mlp as mlpm
@@ -621,7 +622,7 @@ class SSMModel(Model):
         """Block i over the full sequence, without its states (its
         parameters gathered on a mesh)."""
         cfg, blk, mesh = self.cfg, self.blocks[i], self.mesh
-        with _gathered(mesh, blk):
+        with span("model.block", layer=i), _gathered(mesh, blk):
             x = constrain_batch(x, mesh, gb)
             y = x + blk.mamba(apply_norm(blk.ln, x, cfg.norm, impl=cfg.norm_impl))
             return constrain_batch(y, mesh, gb)
@@ -646,23 +647,25 @@ class SSMModel(Model):
         """Block i over the full sequence (its parameters gathered on a
         mesh); appends its conv and SSM states."""
         cfg, blk, mesh = self.cfg, self.blocks[i], self.mesh
-        with _gathered(mesh, blk):
-            x = constrain_batch(x, mesh)
-            h = apply_norm(blk.ln, x, cfg.norm, impl=cfg.norm_impl)
-            y, (cs, ss) = blk.mamba(h, return_state=True)
-        convs.append(cs)
-        ssms.append(ss)
-        return constrain_batch(x + y, mesh)
+        with span("model.block", layer=i):
+            with _gathered(mesh, blk):
+                x = constrain_batch(x, mesh)
+                h = apply_norm(blk.ln, x, cfg.norm, impl=cfg.norm_impl)
+                y, (cs, ss) = blk.mamba(h, return_state=True)
+            convs.append(cs)
+            ssms.append(ss)
+            return constrain_batch(x + y, mesh)
 
     def _mamba_decode(self, i: int, x: torch.Tensor, cache, convs: list, ssms: list):
         """Block i for one token; appends its new conv and SSM states."""
         cfg, blk = self.cfg, self.blocks[i]
-        with _gathered(self.mesh, blk):
-            h = apply_norm(blk.ln, x, cfg.norm, impl=cfg.norm_impl)
-            y, (cs, ss) = blk.mamba.decode_step(h, (cache["conv"][i], cache["ssm"][i]))
-        convs.append(cs)
-        ssms.append(ss)
-        return x + y
+        with span("model.block", layer=i):
+            with _gathered(self.mesh, blk):
+                h = apply_norm(blk.ln, x, cfg.norm, impl=cfg.norm_impl)
+                y, (cs, ss) = blk.mamba.decode_step(h, (cache["conv"][i], cache["ssm"][i]))
+            convs.append(cs)
+            ssms.append(ss)
+            return x + y
 
     @_serving
     def prefill(self, batch: Dict[str, torch.Tensor],

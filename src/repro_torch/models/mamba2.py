@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.conv1d import causal_conv1d
 from repro_torch.kernels.ssd import ssd
+from repro_torch.tracing import span
 from .common import Params, dense_init, rand, rmsnorm
 
 
@@ -123,21 +124,26 @@ class Mamba2(nn.Module):
     def forward(self, x: torch.Tensor, return_state: bool = False):
         """Full-sequence forward.  x: (B, L, D)."""
         cfg, p = self.cfg, self._params()
-        Bsz, L, _ = x.shape
+        Bsz, L, D = x.shape
         H, P, ng, ns = cfg.n_heads, cfg.head_dim, cfg.n_groups, cfg.d_state
-        z, conv_in, dt = _split_proj(p, x, cfg)       # views: read in place
-        conv_out = causal_conv1d(conv_in, p["conv_w"], p["conv_b"])
+        W, chunk = cfg.conv_width, min(cfg.chunk, L)
+        with span("mamba2.in_proj", M=Bsz * L, K=D, N=p["w_in"].shape[1], dtype=x.dtype):
+            z, conv_in, dt = _split_proj(p, x, cfg)       # views: read in place
+        with span("mamba2.conv1d", B=Bsz, L=L, C=conv_in.shape[2], W=W, dtype=conv_in.dtype):
+            conv_out = causal_conv1d(conv_in, p["conv_w"], p["conv_b"])
         xin, Bc, Cc = torch.split(conv_out, [cfg.d_inner, ng * ns, ng * ns], dim=-1)
         A = -torch.exp(p["a_log"])                               # (H,) negative
         dt = F.softplus(dt.float() + p["dt_bias"])
         xh = xin.reshape(Bsz, L, H, P)
         Bm = Bc.reshape(Bsz, L, ng, ns)
         Cm = Cc.reshape(Bsz, L, ng, ns)
-        y, s_final = ssd(xh, dt, A, Bm, Cm, min(cfg.chunk, L))
+        with span("mamba2.ssd", B=Bsz, L=L, H=H, P=P, N=ns, chunk=chunk, dtype=xh.dtype):
+            y, s_final = ssd(xh, dt, A, Bm, Cm, chunk)
         y = y + p["d_skip"][None, None, :, None] * xh
         y = y.reshape(Bsz, L, cfg.d_inner).to(x.dtype)
         y = rmsnorm(y * F.silu(z), p["norm_scale"])
-        out = torch.matmul(y, p["w_out"]).to(x.dtype)
+        with span("mamba2.out_proj", M=Bsz * L, K=y.shape[2], N=D, dtype=y.dtype):
+            out = torch.matmul(y, p["w_out"]).to(x.dtype)
         if return_state:
             return out, (conv_state_after(conv_in, cfg.conv_width), s_final)
         return out

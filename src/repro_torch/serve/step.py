@@ -13,6 +13,8 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from repro_torch.tracing import unit
+
 
 def make_prefill_step(model, max_len: Optional[int] = None) -> Callable:
     def prefill_step(batch):
@@ -52,23 +54,26 @@ def generate(model, batch: Dict[str, torch.Tensor], n_tokens: int,
     the temperature, as in the reference; decode steps sample.  If
     ``times`` is given, it receives the seconds
     of the prefill (``prefill_s``) and of the decode steps (``decode_s``),
-    each ending in a device synchronise."""
+    each ending in a device synchronise; without it nothing waits for
+    the device."""
     B, S = batch["tokens"].shape
     max_len = max_len or (S + n_tokens)
     dev = model.device
-    t0 = time.perf_counter()
-    logits, cache = make_prefill_step(model, max_len)(batch)
-    tok = torch.argmax(logits, dim=-1).to(torch.int32)   # as the reference, at any temperature
-    _sync(dev)
-    t1 = time.perf_counter()
-    decode = make_decode_step(model, temperature)
-    out = [tok]
-    for _ in range(n_tokens - 1):
-        tok, cache = decode(tok, cache, generator)
-        out.append(tok)
-    tokens = torch.stack(out, dim=1)
-    _sync(dev)
+    with unit("serve.generate", B=B, L=S, n_tokens=n_tokens):
+        t0 = time.perf_counter()
+        logits, cache = make_prefill_step(model, max_len)(batch)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)   # as the reference, at any temperature
+        if times is not None:
+            _sync(dev)
+        t1 = time.perf_counter()
+        decode = make_decode_step(model, temperature)
+        out = [tok]
+        for _ in range(n_tokens - 1):
+            tok, cache = decode(tok, cache, generator)
+            out.append(tok)
+        tokens = torch.stack(out, dim=1)
     if times is not None:
+        _sync(dev)
         times["prefill_s"] = t1 - t0
         times["decode_s"] = time.perf_counter() - t1
     return tokens

@@ -35,6 +35,7 @@ from torch.distributed.tensor import DTensor
 from repro_torch.distributed.collectives import batch_sum
 from repro_torch.interop import reference_ndims
 from repro_torch.sharding.rules import mesh_axes, shard_batch
+from repro_torch.tracing import unit
 from .optim import OptConfig, OptState, adamw_update
 
 
@@ -92,11 +93,13 @@ def make_train_step(model, opt_cfg: OptConfig, accum_steps: int = 1,
                 {k: g / accum_steps for k, g in total.items()})
 
     def train_step(opt_state: OptState, batch) -> Tuple[OptState, Dict]:
-        loss, metrics, grads = compute_grads(batch)
-        if compress:
-            from repro_torch.distributed.compression import pod_compressed_mean
-            grads = pod_compressed_mean(grads, mesh)
-        _, opt_state, opt_metrics = adamw_update(opt_cfg, grads, opt_state, params, ndims)
+        B, L = batch["tokens"].shape
+        with unit("train.step", B=B, L=L):
+            loss, metrics, grads = compute_grads(batch)
+            if compress:
+                from repro_torch.distributed.compression import pod_compressed_mean
+                grads = pod_compressed_mean(grads, mesh)
+            _, opt_state, opt_metrics = adamw_update(opt_cfg, grads, opt_state, params, ndims)
         metrics.update(opt_metrics)
         metrics["loss"] = loss
         return opt_state, metrics

@@ -344,12 +344,12 @@ def _counting(fn):
     return kernel
 
 
-def _check_plain_grad(plain, inputs, cotangent):
+def _check_plain_grad(name, plain, inputs, cotangent):
     """``PlainGrad`` with ``plain`` standing in for the kernel: one kernel
     call per forward and none in the backward; the gradients equal
     autograd of ``plain`` itself."""
     kernel = _counting(plain)
-    out = with_plain_grad(kernel, plain, *inputs)
+    out = with_plain_grad(name, kernel, plain, *inputs)
     assert kernel.calls == 1 and out[0].grad_fn is not None
     leaves = [t for t in inputs if t.requires_grad]
     got = torch.autograd.grad(cotangent(out), leaves)
@@ -370,8 +370,9 @@ def test_plain_grad_conv1d_reaches_the_column_view():
     cot = torch.from_numpy(rng.standard_normal((2, 37, 40)).astype(np.float32))
     x = proj[..., 30:70]
     assert not x.is_contiguous()
-    _check_plain_grad(tconv.ref.causal_conv1d, (x, w, b), lambda y: (y[0] * cot).sum())
-    y = with_plain_grad(_counting(tconv.ref.causal_conv1d), tconv.ref.causal_conv1d, x, w, b)
+    _check_plain_grad("conv1d", tconv.ref.causal_conv1d, (x, w, b), lambda y: (y[0] * cot).sum())
+    y = with_plain_grad("conv1d", _counting(tconv.ref.causal_conv1d), tconv.ref.causal_conv1d,
+                        x, w, b)
     (gproj,) = torch.autograd.grad((y * cot).sum(), [proj])
     assert float(gproj[..., :30].abs().max()) == 0 == float(gproj[..., 70:].abs().max())
     assert float(gproj[..., 30:70].abs().min()) >= 0 and float(gproj[..., 30:70].abs().max()) > 0
@@ -392,7 +393,7 @@ def test_plain_grad_ssd(use_state):
     plain = lambda *a: tssd.ref.ssd_chunked(*a, 16)
     cot = (lambda o: (o[0] * cy).sum() + (o[1] * cs).sum()) if use_state else \
         (lambda o: (o[0] * cy).sum())
-    grads = _check_plain_grad(plain, inputs, cot)
+    grads = _check_plain_grad("ssd", plain, inputs, cot)
     assert len(grads) == 5 and all(float(g.abs().max()) > 0 for g in grads)
 
 
@@ -403,7 +404,7 @@ def test_plain_grad_flash_attention_gqa_and_partial_inputs():
     f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
     q, k, v = f(2, 40, 8, 16).requires_grad_(), f(2, 40, 2, 16), f(2, 40, 2, 16).requires_grad_()
     cot = f(2, 40, 8, 16)
-    _check_plain_grad(lambda *a: tfa.ref.attention_ref(*a, causal=True), (q, k, v),
+    _check_plain_grad("flash", lambda *a: tfa.ref.attention_ref(*a, causal=True), (q, k, v),
                       lambda o: (o * cot).sum())
 
 
@@ -413,11 +414,12 @@ def test_plain_grad_is_not_taken_without_grad():
     x = torch.ones(1, 5, 4)
     w, b = torch.ones(4, 4, requires_grad=True), torch.zeros(4)
     kernel = _counting(tconv.ref.causal_conv1d)
-    assert with_plain_grad(kernel, tconv.ref.causal_conv1d, x, w.detach(), b).grad_fn is None
+    assert with_plain_grad("conv1d", kernel, tconv.ref.causal_conv1d, x, w.detach(),
+                           b).grad_fn is None
     with torch.no_grad():
-        assert with_plain_grad(kernel, tconv.ref.causal_conv1d, x, w, b).grad_fn is None
+        assert with_plain_grad("conv1d", kernel, tconv.ref.causal_conv1d, x, w, b).grad_fn is None
     assert kernel.calls == 2
-    assert PlainGrad.apply(kernel, tconv.ref.causal_conv1d, x, w, b).grad_fn is not None
+    assert PlainGrad.apply("conv1d", kernel, tconv.ref.causal_conv1d, x, w, b).grad_fn is not None
 
 
 # ---------------------------------------------------------------------------
