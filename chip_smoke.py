@@ -97,7 +97,8 @@ Phases, each fatal on failure:
    1024 tokens, one after the other, with launch counts read around the
    run (per step forward + recompute: 32 flash-attention launches for
    OLMo, 48 for Granite, 96 conv1d ``shuffle`` and 96 SSD for Mamba-2,
-   every flash and SSD call on ``tensor_core``), every loss finite and
+   and 48 of the SSD's backward kernel, every flash and SSD call on
+   ``tensor_core``), every loss finite and
    every parameter's gradient at step 1 finite and not zero everywhere
    (Granite's experts that no token chose counted); the layer-0 inputs of
    each kernel at step 1 held
@@ -105,8 +106,9 @@ Phases, each fatal on failure:
    against the plain version's autograd on them, its backward timed; one
    more warm step traced and split into the kernels, their plain-autograd
    backward, cuBLAS, the optimizer, other kernels and idle time (the
-   plain backward and the optimizer by the device spans of profiler
-   ranges the smoke opens around them);
+   plain backward by the device spans of the program's
+   ``repro::autograd.backward`` ranges, the optimizer by a profiler range
+   the smoke opens around it);
 9. the mesh path at world size 1: a one-rank NCCL process group and a
    (1, 1) ``("data", "model")`` mesh (``launch.mesh.make_mesh``); olmo-1b
    at published widths trained on it through the functions
@@ -1328,8 +1330,9 @@ def train_split(model, step, state, batch, arch: str, moe: bool = False):
     ``torch.profiler`` trace (CPU and CUDA activity), beside the step's
     wall time measured without the profiler: the port's kernels (forward
     and the backward's recompute), the kernels' plain-autograd backward
-    (``PlainGrad.backward``, wrapped here in a ``smoke::plain_backward``
-    range), cuBLAS elsewhere, the optimizer (in ``smoke::adamw_update``)
+    (the ``repro::autograd.backward`` ranges the program opens in
+    ``PlainGrad.backward``; the SSD's backward kernels inside the same
+    ranges count as the port's kernels), cuBLAS elsewhere, the optimizer (in ``smoke::adamw_update``)
     and other kernels.  A range leaves a device-side annotation spanning
     the kernels launched inside it; a kernel belongs to the range whose
     span holds its start (one stream, so spans hold nothing else).
@@ -1346,9 +1349,8 @@ def train_split(model, step, state, batch, arch: str, moe: bool = False):
     from repro_torch.kernels import conv1d as tconv
     from repro_torch.kernels import flash_attention as tfa
     from repro_torch.kernels import ssd as tssd
-    from repro_torch.kernels.autograd import PlainGrad
 
-    port = ("ssd_tc::", "ssd::", "flash_tc::", "flash::", "conv1d_")
+    port = ("ssd_tc::", "ssd::", "ssd_bwd::", "flash_tc::", "flash::", "conv1d_")
     gemm = ("gemm", "xmma", "cutlass", "nvjet", "sm90_")
     nccl = "nccl"                   # the mesh path's collectives (phase 9)
     torch.cuda.synchronize()
@@ -1356,11 +1358,7 @@ def train_split(model, step, state, batch, arch: str, moe: bool = False):
     state, _ = step(state, batch)
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
-    real_backward, real_moe = PlainGrad.backward, moem.apply_moe_sharded
-
-    def traced_backward(ctx, *cotangents):
-        with record_function("smoke::plain_backward"):
-            return real_backward(ctx, *cotangents)
+    real_moe = moem.apply_moe_sharded
 
     def traced_moe(*args, **kwargs):
         with record_function("smoke::moe"):
@@ -1372,18 +1370,16 @@ def train_split(model, step, state, batch, arch: str, moe: bool = False):
             mod.reset_launch_counts()
         state, _ = step(state, batch)
 
-    PlainGrad.backward = staticmethod(traced_backward)
     if moe:
         moem.apply_moe_sharded = traced_moe
     try:
         events = traced(traced_step, f"{arch} train step")
     finally:
-        PlainGrad.backward = staticmethod(real_backward)
         moem.apply_moe_sharded = real_moe
     launches = {k: n for k, n in {**tconv.launch_counts(), **tssd.launch_counts(),
                                   **tssd.instance_counts(), **tfa.launch_counts(),
                                   **tfa.instance_counts()}.items() if n}
-    ranges = {"smoke::plain_backward": "plain_backward", "smoke::adamw_update": "optimizer",
+    ranges = {"repro::autograd.backward": "plain_backward", "smoke::adamw_update": "optimizer",
               **({"smoke::moe": "moe"} if moe else {})}
     spans, kernels = [], []
     for e in events:
@@ -1391,7 +1387,7 @@ def train_split(model, step, state, batch, arch: str, moe: bool = False):
             continue
         if e.name in ranges:
             spans.append((e.time_range.start, e.time_range.end, ranges[e.name]))
-        else:
+        elif not e.name.startswith("repro::"):     # the program's other ranges hold no time
             kernels.append(e)
     if {f for *_, f in spans} != set(ranges.values()):
         raise RuntimeError(f"{arch}: the trace holds no device span of {sorted(ranges)}")
@@ -1471,7 +1467,9 @@ def function_gradients(captured, rec, label) -> dict:
     for name, (entry, plain, leaves_fn, tols) in cases.items():
         leaves, inputs = leaves_fn()
         y = first(entry(*inputs))
-        if type(y.grad_fn).__name__ != "PlainGradBackward":
+        node = ("SSDFunctionBackward" if name == "ssd" and tssd.select_instance(
+            inputs[0], inputs[3], inputs[4], Q) == "tensor_core" else "PlainGradBackward")
+        if type(y.grad_fn).__name__ != node:
             raise RuntimeError(f"{name}: the entry point's output comes from {y.grad_fn}")
         cot = randn(y.shape, y.dtype, rng)
         got = torch.autograd.grad(y, leaves, cot, retain_graph=True)
@@ -1494,8 +1492,8 @@ def function_gradients(captured, rec, label) -> dict:
                      "plain_forward_backward_ms": times["plain_forward_backward"]}
         print(f"[train-grad] {name} [{label}] Function on layer 0's inputs "
               f"{[tuple(t.shape) for t in inputs]}: gradients vs the plain version's "
-              f"autograd max|err| {max(errs):.2e} (tolerance {tol}); backward (plain "
-              f"autograd) {times['backward']:.4f} ms, plain forward + backward "
+              f"autograd max|err| {max(errs):.2e} (tolerance {tol}); backward ({node}) "
+              f"{times['backward']:.4f} ms, plain forward + backward "
               f"{times['plain_forward_backward']:.4f} ms")
         del y, leaves, pleaves, inputs, pinputs, py
         torch.cuda.empty_cache()
@@ -1529,7 +1527,8 @@ def training_run(report, arch: str, kernels, entries) -> None:
 
     cfg = get_config(arch)
     L, n_attn = cfg.n_layers, flash_per_forward(cfg)
-    per_step = ({"conv1d_shuffle_w4": 2 * L, "ssd": 2 * L, "ssd/tensor_core": 2 * L}
+    per_step = ({"conv1d_shuffle_w4": 2 * L, "ssd": 2 * L, "ssd/tensor_core": 2 * L,
+                 "ssd_bwd": L, "ssd_bwd/tensor_core": L}
                 if cfg.family == "ssm" else
                 {"flash_attention": 2 * n_attn, "flash_attention/tensor_core": 2 * n_attn})
     rec = report.setdefault("training", {}).setdefault(arch, {})

@@ -7,10 +7,15 @@ called on inputs that need a gradient goes through :class:`PlainGrad`: the
 forward is the kernel, and the backward is PyTorch autograd of the
 kernel's plain version recomputed on the saved inputs, the counterpart of
 ``jax.grad`` through the oracle.  The plain version never stands in for
-the kernel in the forward, and the backward launches no kernel, so a
-kernel's launch count moves once per forward call.  The backward runs in
-an ``autograd.backward`` span (:mod:`repro_torch.tracing`) that names the
-kernel.
+the kernel in the forward, and :class:`PlainGrad`'s backward launches none
+of the port's kernels, so a kernel's launch count moves once per forward
+call.  One kernel has a backward of its own instead: the SSD's bf16
+tensor-core instance, whose autograd Function
+(:class:`~repro_torch.kernels.ssd.ops.SSDFunction`) launches the SSD's
+backward kernel, counted apart (``ssd_bwd``); every other SSD call, and
+conv1d and flash attention, take :class:`PlainGrad`.  Either backward runs
+in an ``autograd.backward`` span (:mod:`repro_torch.tracing`) that names
+the kernel.
 
 :data:`PLAIN_DEVICES` are the device types whose tensors take a kernel's
 plain version at its entry point: the CPU, and ``meta``, where the plain

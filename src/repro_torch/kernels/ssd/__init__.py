@@ -1,7 +1,10 @@
 from .ops import (  # noqa: F401
+    BWD_KERNELS_PER_CALL,
     INSTANCES,
     KERNELS_PER_CALL,
     TENSOR_CORE_STATES,
+    SSDBwdKernel,
+    SSDFunction,
     SSDKernel,
     build_kernel,
     instance_counts,

@@ -9,9 +9,12 @@ instance (three CUDA kernels) or its float32-arithmetic one, as
 :func:`select_instance` says.  x, B and C may be
 views with any batch and position strides (the model passes slices of
 the conv output without copying them); their last dimensions must be
-contiguous.  On inputs that need a gradient the kernel runs through
-:class:`~repro_torch.kernels.autograd.PlainGrad`, whose backward is
-autograd of :func:`ref.ssd_chunked`.
+contiguous.  On inputs that need a gradient, a call on the tensor-core
+instance runs through :class:`SSDFunction`, whose backward is
+:class:`SSDBwdKernel` (``csrc/ssd_bwd.cu``: eight CUDA kernels on the
+tensor cores, the factoring of :func:`ref.ssd_passes_bwd`); any other call
+runs through :class:`~repro_torch.kernels.autograd.PlainGrad`, whose
+backward is autograd of :func:`ref.ssd_chunked`.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.build import Library, build_library
+from repro_torch.tracing import span
 from ..autograd import PLAIN_DEVICES, with_plain_grad
 from ..instances import InstanceCounts, tma_ready
 from . import ref as ssd_ref
@@ -30,6 +34,9 @@ from . import ref as ssd_ref
 CSRC = Path(__file__).resolve().parent / "csrc"
 COMMON_CSRC = Path(__file__).resolve().parents[1] / "csrc"     # hopper.cuh
 SOURCE = CSRC / "ssd.cu"
+#: the gradient of the tensor-core instance, compiled after :data:`SOURCE`
+#: in the same library (it launches that file's pass a)
+BWD_SOURCE = CSRC / "ssd_bwd.cu"
 
 #: what the kernel takes (``kMaxQ``, ``kMaxN``, ``kMaxP`` in ``ssd.cu``)
 MAX_CHUNK, MAX_STATE, MAX_HEAD_DIM = 256, 128, 64
@@ -40,6 +47,8 @@ MAX_CHUNK, MAX_STATE, MAX_HEAD_DIM = 256, 128, 64
 INSTANCES = ("tensor_core", "cuda_core")
 #: CUDA kernels one call of each instance launches
 KERNELS_PER_CALL = {"tensor_core": 3, "cuda_core": 1}
+#: CUDA kernels one call of the tensor-core instance's backward launches
+BWD_KERNELS_PER_CALL = 8
 #: state sizes the tensor-core instance takes (it also needs P 64 and a
 #: chunk that is a multiple of 64 up to 256)
 TENSOR_CORE_STATES = (64, 128)
@@ -80,6 +89,8 @@ class SSDKernel(InstanceCounts):
         self._fn_tc = library.lib.launch_ssd_wgmma
         self._fn_tc.argtypes = [ctypes.c_void_p] * 14
         self._fn_tc.restype = ctypes.c_int
+        #: the tensor-core instance's gradient, from the same library
+        self.backward = SSDBwdKernel(library)
 
     def __call__(self, xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                  Bm: torch.Tensor, Cm: torch.Tensor, chunk: int
@@ -152,32 +163,130 @@ class SSDKernel(InstanceCounts):
         return y, state
 
 
+class SSDBwdKernel(InstanceCounts):
+    """The tensor-core instance's gradient.  Calling it with y's cotangent
+    ``dy`` and the final state's ``d_final`` (or None) launches
+    :data:`BWD_KERNELS_PER_CALL` CUDA kernels on the current stream and
+    returns (dx, ddt, dA, dB, dC) in their inputs' dtypes; each call adds
+    one to ``launches`` and to ``instance_launches["tensor_core"]``."""
+
+    symbol = "ssd_bwd"
+    instances = ("tensor_core",)
+
+    def __init__(self, library: Library):
+        super().__init__()
+        self._fn = library.lib.launch_ssd_bwd
+        self._fn.argtypes = [ctypes.c_void_p] * 16
+        self._fn.restype = ctypes.c_int
+        self._scratch = library.lib.ssd_bwd_scratch
+        self._scratch.argtypes = [ctypes.c_void_p]
+        self._scratch.restype = ctypes.c_longlong
+
+    def __call__(self, xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 Bm: torch.Tensor, Cm: torch.Tensor, chunk: int, dy: torch.Tensor,
+                 d_final: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
+        if select_instance(xh, Bm, Cm, chunk) != "tensor_core":
+            raise ValueError("the backward kernel takes the tensor-core instance's "
+                             "inputs (ssd.select_instance)")
+        B, L, H, P = xh.shape
+        N = Bm.shape[-1]
+        if (Bm.shape[2] != 1 or Cm.shape != Bm.shape or Bm.dtype != xh.dtype
+                or Cm.dtype != xh.dtype or tuple(dt.shape) != (B, L, H) or tuple(A.shape) != (H,)
+                or dt.dtype != torch.float32 or A.dtype != torch.float32
+                or dt.stride(2) != 1 or not A.is_contiguous()
+                or xh.stride(2) != P or L % chunk):
+            raise ValueError("the backward kernel takes the forward kernel's inputs")
+        if tuple(dy.shape) != (B, L, H, P):
+            raise ValueError(f"dy: expected {(B, L, H, P)}, got {tuple(dy.shape)}")
+        dev = xh.device
+        dy = dy.to(torch.bfloat16).contiguous()
+        if d_final is not None:
+            if tuple(d_final.shape) != (B, H, N, P):
+                raise ValueError(f"d_final: expected {(B, H, N, P)}, got "
+                                 f"{tuple(d_final.shape)}")
+            d_final = d_final.to(torch.float32).contiguous()
+        dims = (ctypes.c_int * 6)(B, L, H, P, N, chunk)
+        strides = (ctypes.c_longlong * 8)(
+            xh.stride(0), xh.stride(1), dt.stride(0), dt.stride(1),
+            Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1))
+        dx = torch.empty((B, L, H, P), dtype=xh.dtype, device=dev)
+        ddt = torch.empty((B, L, H), dtype=torch.float32, device=dev)
+        dA = torch.empty((H,), dtype=torch.float32, device=dev)
+        dB = torch.empty((B, L, 1, N), dtype=Bm.dtype, device=dev)
+        dC = torch.empty((B, L, 1, N), dtype=Cm.dtype, device=dev)
+        scratch = torch.empty((self._scratch(dims),), dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = self._fn(xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+                          Cm.data_ptr(), dy.data_ptr(),
+                          None if d_final is None else d_final.data_ptr(),
+                          dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+                          dC.data_ptr(), scratch.data_ptr(), strides, dims, stream)
+        if rc != 0:
+            raise RuntimeError(f"ssd backward: kernel launch failed (cudaError {rc})")
+        self.count("tensor_core")
+        return dx, ddt, dA, dB, dC
+
+
+class SSDFunction(torch.autograd.Function):
+    """The tensor-core instance with its own backward:
+    ``forward(ctx, chunk, xh, dt, A, Bm, Cm)`` returns the forward kernel's
+    (y, final_state); the backward runs :class:`SSDBwdKernel` on the saved
+    inputs in an ``autograd.backward`` span (kernel ``ssd``), as
+    :class:`~repro_torch.kernels.autograd.PlainGrad` does."""
+
+    @staticmethod
+    def forward(ctx, chunk: int, xh, dt, A, Bm, Cm):
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(xh, dt, A, Bm, Cm)
+        return build_kernel()(xh, dt, A, Bm, Cm, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, d_final):
+        with span("autograd.backward", kernel="ssd"):
+            xh, dt, A, Bm, Cm = ctx.saved_tensors
+            if dy is None:
+                dy = torch.zeros_like(xh)
+            grads = _KERNEL.backward(xh, dt, A, Bm, Cm, ctx.chunk, dy, d_final)
+        return (None, *[g if n else None for g, n in zip(grads, ctx.needs_input_grad[1:])])
+
+
 _KERNEL: Optional[SSDKernel] = None
 
 
 def build_kernel() -> SSDKernel:
-    """Build (once, with one ``nvcc`` call) and return the kernel."""
+    """Build (once, with one ``nvcc`` call, the forward and its backward
+    in one library) and return the kernel; its backward is ``.backward``."""
     global _KERNEL
     if _KERNEL is None:
-        _KERNEL = SSDKernel(build_library(SOURCE.read_text(), [CSRC, COMMON_CSRC]))
+        _KERNEL = SSDKernel(build_library(SOURCE.read_text() + "\n" + BWD_SOURCE.read_text(),
+                                          [CSRC, COMMON_CSRC]))
     return _KERNEL
 
 
 def launch_counts():
-    """Launches of the kernel since the last reset ({} before it is built)."""
-    return {} if _KERNEL is None else {_KERNEL.symbol: _KERNEL.launches}
+    """Calls of the kernel and of its backward since the last reset ({}
+    before they are built)."""
+    if _KERNEL is None:
+        return {}
+    return {_KERNEL.symbol: _KERNEL.launches, _KERNEL.backward.symbol: _KERNEL.backward.launches}
 
 
 def instance_counts():
-    """Calls per instance since the last reset, keyed ``ssd/<instance>``
-    ({} before the kernel is built); a call of ``tensor_core`` launches
-    :data:`KERNELS_PER_CALL` CUDA kernels."""
-    return {} if _KERNEL is None else _KERNEL.instance_counts()
+    """Calls per instance since the last reset, keyed ``ssd/<instance>`` and
+    ``ssd_bwd/tensor_core`` ({} before the kernel is built); a call of
+    ``tensor_core`` launches :data:`KERNELS_PER_CALL` CUDA kernels, one of
+    its backward :data:`BWD_KERNELS_PER_CALL`."""
+    if _KERNEL is None:
+        return {}
+    return {**_KERNEL.instance_counts(), **_KERNEL.backward.instance_counts()}
 
 
 def reset_launch_counts() -> None:
     if _KERNEL is not None:
         _KERNEL.reset()
+        _KERNEL.backward.reset()
 
 
 def ssd(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -187,11 +296,15 @@ def ssd(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     A: (H,) float32 negative; Bm, Cm: (B, L, 1, N).  L % chunk == 0.
 
     Returns (y (B, L, H, P), final_state (B, H, N, P) float32); on the card
-    differentiable through the plain version.
+    differentiable through the backward kernel (tensor-core instance) or
+    the plain version (any other).
     """
     if xh.device.type in PLAIN_DEVICES:
         return ssd_ref.ssd_chunked(xh, dt, A, Bm, Cm, chunk)
     kernel = build_kernel()
+    if (torch.is_grad_enabled() and any(t.requires_grad for t in (xh, dt, A, Bm, Cm))
+            and select_instance(xh, Bm, Cm, chunk) == "tensor_core"):
+        return SSDFunction.apply(chunk, xh, dt, A, Bm, Cm)
     return with_plain_grad("ssd", lambda *a: kernel(*a, chunk),
                            lambda *a: ssd_ref.ssd_chunked(*a, chunk),
                            xh, dt, A, Bm, Cm)

@@ -10,7 +10,7 @@ multiplies in float32 whatever the input dtype (the reference's
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -159,3 +159,110 @@ def ssd_passes(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             ys.append(y)
     y = torch.stack(ys, dim=1).reshape(Bsz, L, H, P)
     return y.to(xh.dtype), S
+
+
+def ssd_passes_bwd(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   Bm: torch.Tensor, Cm: torch.Tensor, chunk: int, dy: torch.Tensor,
+                   d_final: Optional[torch.Tensor] = None, round_operands: bool = False
+                   ) -> Tuple[torch.Tensor, ...]:
+    """The gradient of :func:`ssd_chunked` in the factoring of the CUDA
+    backward (``csrc/ssd_bwd.cu``): ``dy`` is y's cotangent, ``d_final`` the
+    final state's (None: zero).  Returns (dx, ddt, dA, dB, dC) in their
+    inputs' dtypes.  Per chunk c, with cum the inclusive prefix sum of dt A,
+    total its last row, S_c the state entering the chunk and G_{c+1} the
+    cotangent of the state leaving it:
+
+    a. the entering states, as the forward's passes a and b form them;
+    b. dG_c = sum_i exp(cum_i) C_i^T dy_i, and the reverse carry over the
+       chunks G_c = exp(total_c) G_{c+1} + dG_c, G_nc = d_final;
+    c. per chunk, with decay_ij = exp(cum_i - cum_j) (i >= j, else 0),
+       P_ij = C_i . B_j, R_ij = dy_i . x_j and BG_j = B_j G_{c+1}:
+       dx_j = dt_j [sum_i P_ij decay_ij dy_i + exp(total - cum_j) BG_j];
+       ddt's direct term sum_i P_ij decay_ij R_ij + exp(total - cum_j) BG_j . x_j;
+       W_ij = R_ij decay_ij dt_j summed over the group's heads, then
+       dB_j = sum_i W_ij C_i + sum_h exp(total - cum_j) dt_j G_{c+1} x_j and
+       dC_i = sum_j W_ij B_j + sum_h exp(cum_i) S_c dy_i;
+    d. dcum_k = sum_j T_kj + U_k - dt_k ddt_k (T_ij = P_ij decay_ij R_ij dt_j,
+       U_i = exp(cum_i) C_i S_c dy_i), plus <G_{c+1}, S_{c+1}> at the
+       chunk's last row (total's term); its reverse prefix sum over the
+       chunk is d(dt A), which adds A (...) to ddt and sum dt (...) to dA.
+
+    With ``round_operands`` every float32 operand of a bf16 product is
+    rounded as the kernels round it: w x in the chunk states (the forward's
+    pass a) to one bf16; the decayed scores, W, G, S and exp(cum) dy to
+    bf16 hi + lo.  Float32 otherwise; a plain version used by no main path.
+    """
+    Bsz, L, H, P = xh.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if L % chunk:
+        raise ValueError(f"sequence length {L} is not a multiple of the "
+                         f"chunk {chunk}")
+    nc, Q, rep = L // chunk, chunk, H // G
+    f32 = torch.float32
+    rnd = _bf16 if round_operands else (lambda t: t)
+    op = _split if round_operands else (lambda t: t)
+    x = xh.to(f32).reshape(Bsz, nc, Q, H, P)
+    g = dy.to(f32).reshape(Bsz, nc, Q, H, P)
+    dtq = dt.to(f32).reshape(Bsz, nc, Q, H)
+    Af = A.to(f32)
+    cum = torch.cumsum(dtq * Af, dim=2)                          # (B,nc,Q,H)
+    total = cum[:, :, -1]                                        # (B,nc,H)
+    Bg = Bm.to(f32).reshape(Bsz, nc, Q, G, N)
+    Cg = Cm.to(f32).reshape(Bsz, nc, Q, G, N)
+    Bh = torch.repeat_interleave(Bg, rep, dim=3)                 # (B,nc,Q,H,N)
+    Ch = torch.repeat_interleave(Cg, rep, dim=3)
+
+    # a. entering states S_c, and S_{c+1}
+    w = torch.exp(total[:, :, None] - cum) * dtq
+    dS = torch.einsum("bcqhn,bcqhp->bchnp", Bh, rnd(x * w[..., None]))
+    S = torch.zeros((Bsz, H, N, P), dtype=f32, device=xh.device)
+    entering = []
+    for c in range(nc):
+        entering.append(S)
+        S = torch.exp(total[:, c])[:, :, None, None] * S + dS[:, c]
+    S_in = op(torch.stack(entering, dim=1))                      # (B,nc,H,N,P)
+    S_out = torch.cat([S_in[:, 1:], S[:, None]], dim=1)
+
+    # b. the state's cotangent, a reverse pass over the chunks
+    dG = torch.einsum("bcqhn,bcqhp->bchnp", Ch, op(torch.exp(cum)[..., None] * g))
+    Gc = (torch.zeros_like(S) if d_final is None else d_final.to(f32))
+    leaving = [None] * nc
+    for c in reversed(range(nc)):
+        leaving[c] = Gc
+        Gc = torch.exp(total[:, c])[:, :, None, None] * Gc + dG[:, c]
+    G_out = torch.stack(leaving, dim=1)                          # G_{c+1}
+    dot = (G_out * S_out).sum(dim=(-2, -1))                      # (B,nc,H)
+    G_out = op(G_out)                     # the products read G as bf16 hi + lo
+
+    # c. per chunk; the mask before the exponential
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xh.device))[..., None]
+    diff = cum[:, :, :, None] - cum[:, :, None]                  # (B,nc,Qi,Qj,H)
+    decay = torch.where(mask, torch.exp(torch.where(mask, diff, torch.zeros_like(diff))),
+                        torch.zeros_like(diff))
+    Pm = torch.einsum("bcign,bcjgn->bcijg", Cg, Bg).repeat_interleave(rep, dim=-1)
+    R = torch.einsum("bcihp,bcjhp->bcijh", g, x)
+    E = Pm * decay * R
+    sd = op(Pm * decay)
+    eb = torch.exp(total[:, :, None] - cum)                      # (B,nc,Q,H)
+    BG = torch.einsum("bcjhn,bchnp->bcjhp", Bh, G_out)
+    dx = dtq[..., None] * (torch.einsum("bcijh,bcihp->bcjhp", sd, g) + eb[..., None] * BG)
+    ddt = E.sum(dim=2) + eb * (BG * x).sum(dim=-1)               # direct term
+    rowT = (E * dtq[:, :, None]).sum(dim=3)                      # (B,nc,Qi,H)
+    U = torch.exp(cum) * torch.einsum("bcihn,bchnp,bcihp->bcih", Ch, S_in, g)
+    W = op((R * decay * dtq[:, :, None]).reshape(Bsz, nc, Q, Q, G, rep).sum(dim=-1))
+    dBh = (eb * dtq)[..., None] * torch.einsum("bchnp,bcjhp->bcjhn", G_out, x)
+    dCh = torch.exp(cum)[..., None] * torch.einsum("bchnp,bcihp->bcihn", S_in, g)
+    dB = (torch.einsum("bcijg,bcign->bcjgn", W, Cg)
+          + dBh.reshape(Bsz, nc, Q, G, rep, N).sum(dim=4))
+    dC = (torch.einsum("bcijg,bcjgn->bcign", W, Bg)
+          + dCh.reshape(Bsz, nc, Q, G, rep, N).sum(dim=4))
+
+    # d. d(dt A) from dcum, a reverse prefix sum over each chunk
+    dcum = rowT + U - dtq * ddt
+    dcum[:, :, -1] += dot
+    rc = torch.flip(torch.cumsum(torch.flip(dcum, [2]), dim=2), [2])
+    ddt = ddt + Af * rc
+    dA = (dtq * rc).sum(dim=(0, 1, 2))
+    return (dx.reshape(Bsz, L, H, P).to(xh.dtype), ddt.reshape(Bsz, L, H).to(dt.dtype),
+            dA.to(A.dtype), dB.reshape(Bsz, L, G, N).to(Bm.dtype),
+            dC.reshape(Bsz, L, G, N).to(Cm.dtype))

@@ -593,20 +593,21 @@ def _first(out):
     return out[0] if isinstance(out, tuple) else out
 
 
-def _function_vs_plain(counts, entry, plain, make, tol, seed):
+def _function_vs_plain(counts, entry, plain, make, tol, seed, backward="PlainGradBackward"):
     """``entry`` (the kernel's public entry point, through its autograd
     Function on the card; ``counts`` its package) against autograd of
     ``plain`` on equal inputs and a seeded cotangent: the output and every
-    gradient within ``tol``; the forward launches once, the backward
-    never."""
+    gradient within ``tol``; the forward launches once, and the backward
+    (``backward``, the Function's node) once more where it is a kernel's
+    own, else never."""
     leaves, inputs = make()
     counts.reset_launch_counts()
     y = _first(entry(*inputs))
     launched = sum(counts.launch_counts().values())
-    assert launched == 1 and type(y.grad_fn).__name__ == "PlainGradBackward"
+    assert launched == 1 and type(y.grad_fn).__name__ == backward
     cot = _randn(y.shape, y.dtype, np.random.default_rng(seed))
     got = torch.autograd.grad(y, leaves, cot)
-    assert sum(counts.launch_counts().values()) == 1           # none in the backward
+    assert sum(counts.launch_counts().values()) == 1 + (backward != "PlainGradBackward")
     pleaves, pinputs = make()
     want = torch.autograd.grad(_first(plain(*pinputs)), pleaves, cot)
     torch.testing.assert_close(y.float(), _first(plain(*pinputs)).float(), rtol=tol, atol=tol)
@@ -641,8 +642,10 @@ def test_conv1d_function_gradient_matches_plain(card, shape, dtype):
                                    (2, 512, 6, 64, 64, 64), (1, 256, 4, 64, 128, 256)])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_ssd_function_gradient_matches_plain(card, shape, dtype):
-    """Both instances (the bf16 shapes with P 64 run on ``tensor_core``);
-    gradients for xh, dt, A, Bm and Cm from y's cotangent alone."""
+    """Both instances (the bf16 shapes with P 64 run on ``tensor_core``,
+    whose backward is the backward kernel; the others go through
+    ``PlainGrad``); gradients for xh, dt, A, Bm and Cm from y's cotangent
+    alone."""
     B, L, H, P, N, Q = shape
     rng = np.random.default_rng(sum(shape))
     xh = _randn((B, L, H, P), DTYPES[dtype], rng)
@@ -654,9 +657,108 @@ def test_ssd_function_gradient_matches_plain(card, shape, dtype):
         leaves = [t.clone().requires_grad_() for t in (xh, dt, A, Bm, Cm)]
         return leaves, tuple(leaves)
 
+    tensor_core = tssd.select_instance(xh, Bm, Cm, Q) == "tensor_core"
     grads = _function_vs_plain(tssd, lambda *a: tssd.ssd(*a, Q), lambda *a: tssd.ref.ssd_chunked(*a, Q),
-                               make, SSD_TOL[dtype], 2)
+                               make, SSD_TOL[dtype], 2,
+                               "SSDFunctionBackward" if tensor_core else "PlainGradBackward")
     assert all(float(g.abs().max()) > 0 for g in grads)
+
+
+# (B, L, H, P, N, chunk): Mamba-2's training shape, Zamba2's (N 64), and
+# smaller ones at chunks 64 and 192
+SSD_BWD_SHAPES = [(4, 2048, 64, 64, 128, 256), (4, 2048, 64, 64, 64, 256),
+                  (2, 512, 6, 64, 128, 64), (1, 384, 3, 64, 64, 192)]
+#: the backward kernel's float32 gradients (ddt, dA) against the plain
+#: version that rounds what it rounds, as a fraction of the largest element:
+#: the two round w x to one bf16 in the chunk states, but w = exp(total -
+#: cum) dt comes from two exp()s an ulp apart, so a few terms round to the
+#: neighbouring bf16 (2^-8 relative); summed over a chunk for ddt and over
+#: every position for dA (1.1e-4 and 5.5e-4 at most on the card)
+SSD_BWD_F32_TOL = {"ddt": 5e-4, "dA": 2e-3}
+#: the same against float32 autograd of ``ref.ssd_chunked``: the entering
+#: states come from the forward's pass a, which rounds w x to one bf16 (2^-9
+#: relative a term); through U and the dots that reaches ddt, and dA sums
+#: it over every position of the batch (3.2e-4 and 1.3e-2 at most on the
+#: card)
+SSD_BWD_F32_EXACT_TOL = {"ddt": 2e-3, "dA": 4e-2}
+
+
+def _ssd_bwd_inputs(B, L, H, P, N, seed):
+    """x, B and C as strided views of one conv output (as the model
+    passes them), dt, A, y's cotangent and the final state's."""
+    rng = np.random.default_rng(seed)
+    conv = _randn((B, L, H * P + 2 * N + 64), torch.bfloat16, rng)
+    xh = conv[..., :H * P].view(B, L, H, P)
+    Bm = conv[..., H * P:H * P + N].view(B, L, 1, N)
+    Cm = conv[..., H * P + N:H * P + 2 * N].view(B, L, 1, N)
+    dt = torch.from_numpy(rng.uniform(0.01, 0.2, (B, L, H)).astype(np.float32)).cuda()
+    A = -torch.from_numpy(rng.uniform(0.5, 2.0, (H,)).astype(np.float32)).cuda()
+    return (xh, dt, A, Bm, Cm), _randn((B, L, H, P), torch.bfloat16, rng), \
+        _randn((B, H, N, P), torch.float32, rng)
+
+
+@pytest.mark.parametrize("shape", SSD_BWD_SHAPES)
+@pytest.mark.parametrize("final", [False, True], ids=["no_final", "final"])
+def test_ssd_backward_kernel_matches_plain(card, shape, final, monkeypatch):
+    """The tensor-core instance's backward kernel through ``ssd``'s
+    Function, x, B and C strided views of one conv output, from y's
+    cotangent and, with ``final``, the final state's: one call adds one to
+    the backward's count (``ssd_bwd/tensor_core``) and enters no
+    ``PlainGrad``; the gradients come back in their inputs' dtypes.  dx, dB
+    and dC against the plain version that rounds what the kernels round
+    (``ref.ssd_passes_bwd(round_operands=True)``) by
+    ``instances.check_rounded`` and against float32 autograd of
+    ``ref.ssd_chunked`` at 4 bf16 ulps of each row's scale; ddt and dA at
+    :data:`SSD_BWD_F32_TOL` and :data:`SSD_BWD_F32_EXACT_TOL` of their
+    largest elements.  (dC's state term reads the entering states, so
+    against float32 autograd it is some 2 ulps off: pass a's rounding.)"""
+    from repro_torch.kernels.autograd import PlainGrad
+    from repro_torch.kernels.instances import rounded_agreement
+
+    B, L, H, P, N, Q = shape
+    args, dy, d_final = _ssd_bwd_inputs(B, L, H, P, N, sum(shape) + final)
+    entered = []
+    real = PlainGrad.backward
+    monkeypatch.setattr(PlainGrad, "backward",
+                        staticmethod(lambda ctx, *g: entered.append(1) or real(ctx, *g)))
+    k = tssd.build_kernel()
+    bk = k.backward
+    assert tssd.select_instance(args[0], args[3], args[4], Q) == "tensor_core"
+    leaves = [t.detach().requires_grad_() for t in args]
+    y, state = tssd.ssd(*leaves, Q)
+    assert type(y.grad_fn).__name__ == "SSDFunctionBackward"
+    before, before_bwd = k.launches, dict(bk.instance_launches)
+    got = torch.autograd.grad([y, state] if final else [y], leaves,
+                              [dy, d_final] if final else [dy])
+    torch.cuda.synchronize()
+    assert k.launches == before and not entered
+    assert bk.instance_launches == {"tensor_core": before_bwd["tensor_core"] + 1}
+    assert tssd.instance_counts()["ssd_bwd/tensor_core"] == bk.launches
+    df = d_final if final else None
+    f32 = [t.float() for t in args]
+    rounded = tssd.ref.ssd_passes_bwd(*f32, Q, dy.float(), df, round_operands=True)
+    pleaves = [t.clone().requires_grad_() for t in f32]
+    py, pstate = tssd.ref.ssd_chunked(*pleaves, Q)
+    exact = torch.autograd.grad([py, pstate] if final else [py], pleaves,
+                                [dy.float(), d_final] if final else [dy.float()])
+    for name, g, r, e, inp in zip(("dx", "ddt", "dA", "dB", "dC"), got, rounded, exact, args):
+        assert g.shape == inp.shape and g.dtype == inp.dtype, name
+        if g.dtype == torch.bfloat16:
+            check_rounded(f"ssd backward {name}", g, r)
+            assert rounded_agreement(g, e)["ulps"] <= 4.0, name
+        else:
+            scale = float(e.abs().max())
+            assert float((g - r).abs().max()) <= SSD_BWD_F32_TOL[name] * scale, name
+            assert float((g - e).abs().max()) <= SSD_BWD_F32_EXACT_TOL[name] * scale, name
+
+
+def test_ssd_backward_kernel_is_deterministic(card):
+    """Every sum across CTAs runs in a fixed order: two calls on the same
+    inputs give the same gradients bit for bit."""
+    args, dy, d_final = _ssd_bwd_inputs(4, 2048, 64, 64, 128, 5)
+    bk = tssd.build_kernel().backward
+    one, two = bk(*args, 256, dy, d_final), bk(*args, 256, dy, d_final)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
 
 
 _FLASH_GRAD_SHAPES = [(1, 100, 100, 4, 4, 8, True), (2, 64, 64, 8, 2, 16, False),

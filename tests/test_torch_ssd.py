@@ -183,3 +183,62 @@ def test_rounded_check_sees_a_dropped_lo_half(monkeypatch):
     np.testing.assert_allclose(y.float().numpy(), want_y.numpy(), rtol=8e-2, atol=8e-2)
     with pytest.raises(AssertionError, match="bf16 ulps"):
         check_rounded("hi only", y, want_y)
+
+
+# (B, L, H, P, N, chunk, groups): one chunk and several, P and N apart,
+# two B/C groups, and the tensor-core instance's widths at chunk 64
+BWD_SHAPES = [(1, 16, 2, 4, 8, 16, 1), (2, 48, 3, 8, 4, 16, 1), (2, 64, 4, 16, 16, 32, 2),
+              (1, 96, 2, 8, 16, 32, 1), (1, 192, 2, 64, 128, 64, 1)]
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+@pytest.mark.parametrize("final", [False, True], ids=["no_final", "final"])
+def test_passes_bwd_matches_autograd(shape, final):
+    """The backward in the CUDA kernels' factoring (``ref.ssd_passes_bwd``)
+    against autograd of ``ssd_chunked`` in float32, from y's cotangent and,
+    with ``final``, the final state's too: every gradient within 1e-5 of
+    its largest element (the two sum in other orders)."""
+    B, L, H, P, N, Q, G = shape
+    rng = np.random.default_rng(sum(shape) + final)
+
+    def t(*s, lo=None, hi=None):
+        a = rng.standard_normal(s) if lo is None else rng.uniform(lo, hi, s)
+        return torch.from_numpy(a.astype(np.float32))
+
+    inputs = (t(B, L, H, P), t(B, L, H, lo=0.01, hi=0.2), -t(H, lo=0.5, hi=2.0),
+              t(B, L, G, N), t(B, L, G, N))
+    dy, d_final = t(B, L, H, P), (t(B, H, N, P) if final else None)
+    leaves = [v.clone().requires_grad_() for v in inputs]
+    y, state = tssd.ref.ssd_chunked(*leaves, Q)
+    want = torch.autograd.grad([y, state] if final else [y], leaves,
+                               [dy, d_final] if final else [dy])
+    got = tssd.ref.ssd_passes_bwd(*inputs, Q, dy, d_final)
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5 * float(w.abs().max()),
+                                   msg=lambda m, n=name: f"{n}: {m}")
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES[2:])
+def test_passes_bwd_rounded_stays_near_unrounded(shape):
+    """With every operand rounded as the CUDA backward rounds it (w x in
+    the chunk states to one bf16, the rest to bf16 hi + lo), each gradient
+    stays within 1e-2 of its largest element of the unrounded one: the
+    one-bf16 rounding of w x (2^-9 relative a term) is the largest change,
+    and it reaches the gradients only through the entering states."""
+    B, L, H, P, N, Q, G = shape
+    rng = np.random.default_rng(sum(shape))
+
+    def t(*s, lo=None, hi=None):
+        a = rng.standard_normal(s) if lo is None else rng.uniform(lo, hi, s)
+        return torch.from_numpy(a.astype(np.float32))
+
+    inputs = (t(B, L, H, P), t(B, L, H, lo=0.01, hi=0.2), -t(H, lo=0.5, hi=2.0),
+              t(B, L, G, N), t(B, L, G, N))
+    dy, d_final = t(B, L, H, P), t(B, H, N, P)
+    want = tssd.ref.ssd_passes_bwd(*inputs, Q, dy, d_final)
+    got = tssd.ref.ssd_passes_bwd(*inputs, Q, dy, d_final, round_operands=True)
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+        assert not torch.equal(g, w), name
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-2 * float(w.abs().max()),
+                                   msg=lambda m, n=name: f"{n}: {m}")
