@@ -85,6 +85,14 @@ Phases, each fatal on failure:
    48 flash launches per prefill, none per decode step; its first
    encoder and first decoder call held and timed); kimi-k2-1t-a32b and
    llama-3.2-vision-90b (gates set non-zero) reduced only, card vs CPU;
+7b. Zamba2-7B-Instruct (``zamba2-7b``) at its published widths: one
+   prefill of 8 x 4096 tokens, the benchmark cell's largest batch,
+   through ``serve.step.generate``, launch counts zeroed just before it
+   (81 conv1d ``shuffle``, 81 SSD and 13 flash-attention launches, every
+   SSD and flash call on its tensor-core instance); the first conv1d,
+   SSD (two B/C groups) and flash call (Dh 224, scale (Dh / 2)^-1/2) of
+   that prefill held against the plain versions and timed beside their
+   bounds;
 8. the training path: one train step of the reduced olmo-1b, mamba2-1.3b,
    zamba2-1.2b, granite-moe-1b-a400m, seamless-m4t-large-v2 and
    llama-3.2-vision-90b in float32 on the card (every kernel through its
@@ -201,6 +209,8 @@ Phases, each fatal on failure:
 15. a ``kernels`` JSON line, and as the last line the device record.
 
 Run from the repository root:  python3 chip_smoke.py
+(``--only zamba2-7b``: phases 1, the conv1d, SSD and flash builds of 2,
+and 7b alone, then the ``kernels`` line.)
 Needs one CUDA device and nvcc for sm_90a; exits non-zero without them.
 """
 
@@ -238,6 +248,8 @@ SSD_SOURCE = "src/repro_torch/kernels/ssd/csrc/ssd.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:33"
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 MAMBA, HYBRID = "mamba2-1.3b", "zamba2-1.2b"
+# phase 7b: the benchmark's zamba2-7b.prefill-pool cell's largest batch
+ZAMBA2_7B, ZAMBA2_7B_BATCH = "zamba2-7b", (8, 4096)
 DENSE = ("olmo-1b", "yi-9b")                        # served at full width
 MOE, ENCDEC = "granite-moe-1b-a400m", "seamless-m4t-large-v2"     # the same
 # card vs CPU, reduced only: kimi-k2 (1.04 T parameters) and
@@ -977,10 +989,11 @@ def layer0_ssd(ssd_kernel, args, launches, report, entries, name, phase="serve")
     item = xh.element_size()
     nbytes = (2 * xh.numel() * item + dt.numel() * 4 + A.numel() * 4
               + (Bm.numel() + Cm.numel()) * item + Bsz * H * N * P * 4)
-    # what the function needs per chunk: causal C.B^T once per (b, chunk)
-    # (G = 1), and per head causal scores @ x, C @ state, the state update
+    # what the function needs per chunk: causal C.B^T once per (b, chunk,
+    # group), and per head causal scores @ x, C @ state, the state update
     chunks = Bsz * (L // Q)
-    flops = chunks * (Q * (Q + 1) * N + H * (Q * (Q + 1) * P + 4 * Q * N * P))
+    flops = chunks * (Q * (Q + 1) * N * Bm.shape[2]
+                      + H * (Q * (Q + 1) * P + 4 * Q * N * P))
     # what the instance executes
     T, nc = Q // 64, L // Q
     if instance == "tensor_core":
@@ -1177,6 +1190,135 @@ def serving_path(arch, kernels, report, entries) -> None:
     torch.cuda.empty_cache()
     if arch in CONTINUITY_ARCHS:
         continuity(rec, arch)
+    torch.cuda.empty_cache()
+
+
+def zamba2_7b_flash(fa_kernel, args, launches, report, entries) -> None:
+    """The flash kernel on the first shared-attention call of the 8 x 4096
+    prefill, Dh 224 at Zamba2's scale: parity with ``attention_ref`` one
+    batch row at a time (the whole batch's float32 scores would take
+    17 GB), time beside the bound and ``scaled_dot_product_attention``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as tfa
+
+    q, k, v, causal, scale = args
+    B, S, H, Dh = q.shape
+    instance = tfa.select_instance(q, k, v)
+    if instance != "tensor_core":
+        raise RuntimeError(f"zamba2-7b flash {tuple(q.shape)}: {instance} instance")
+    tol = FLASH_TOL["bfloat16"]
+    out = fa_kernel(q, k, v, causal, scale)
+    err = 0.0
+    for b in range(B):
+        want = tfa.ref.attention_ref(q[b:b + 1], k[b:b + 1], v[b:b + 1], causal, scale=scale)
+        torch.testing.assert_close(out[b:b + 1].float(), want.float(), rtol=tol, atol=tol)
+        err = max(err, float((out[b:b + 1].float() - want.float()).abs().max()))
+        del want
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    nbytes = 4 * q.numel() * q.element_size()
+    flops = B * H * (S * (S + 1) // 2) * 4 * Dh
+    bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": flops / BF16_FLOPS * 1e3}
+    bound_by = max(bound, key=bound.get)
+    times = cold_ms({"kernel": lambda: fa_kernel(q, k, v, causal, scale),
+                     "library": lambda: F.scaled_dot_product_attention(
+                         qt, kt, vt, is_causal=causal, scale=scale)}, 10)
+    ms, library_ms = times["kernel"], times["library"]
+    report["flash"] = {"shape": (B, S, H, Dh), "scale": scale, "instance": instance,
+                       "bytes": nbytes, "flops": flops, "bound_ms": bound[bound_by],
+                       "bound_by": bound_by, "ms": ms, "library_ms": library_ms,
+                       "max_abs_err": err}
+    entries.append({"name": f"flash_attention[{ZAMBA2_7B}]", "route": "cuda",
+                    "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
+                    "launches": launches["flash_attention"], "max_abs_err": err, "ms": ms,
+                    "plain_ms": None, "bound_ms": bound[bound_by], "bound_by": bound_by,
+                    "library_ms": library_ms})
+    print(f"[zamba2-7b-kernel] flash_attention {(B, S, H, Dh)} causal {causal} scale "
+          f"{scale:.5f} {q.dtype} ({instance}) {ms:.4f} ms, bound {bound[bound_by]:.4f} ms "
+          f"({bound_by}; {100 * bound[bound_by] / ms:.1f} %); scaled_dot_product_attention "
+          f"{library_ms:.4f} ms; max|err| {err:.2e} over {B} rows against attention_ref")
+
+
+def zamba2_7b_prefill(kernels, report, entries) -> None:
+    """Phase 7b.  ``zamba2-7b`` at its published widths (random weights
+    from a seed) through ``serve.step.generate``: after a warm-up, launch
+    counts zeroed just before one prefill of ``ZAMBA2_7B_BATCH`` tokens
+    and required to be one conv1d and one SSD (tensor cores) per mixer and
+    one flash call (tensor cores) per application, nothing else; that
+    prefill's first conv1d, SSD and flash calls captured and held against
+    the plain versions, then timed beside their bounds."""
+    import torch
+
+    import repro_torch.models.mamba2 as m2
+    import repro_torch.models.zamba2 as z2
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import conv1d as tconv
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import ssd as tssd
+    from repro_torch.models import build_model
+    from repro_torch.serve import step
+
+    cfg = get_config(ZAMBA2_7B)
+    B, L = ZAMBA2_7B_BATCH
+    apps = len(cfg.hybrid_layer_ids)
+    want = {"conv1d_shuffle_w4": cfg.n_layers, "ssd": cfg.n_layers,
+            "ssd/tensor_core": cfg.n_layers, "flash_attention": apps,
+            "flash_attention/tensor_core": apps}
+    rec = report.setdefault("serving", {}).setdefault(ZAMBA2_7B, {})
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    model = build_model(cfg, device="cuda", generator=gen)
+    tokens = torch.randint(0, cfg.vocab, (B, L), generator=gen, device="cuda")
+    t0 = time.perf_counter()
+    step.generate(model, {"tokens": tokens[:, :512]}, 1)     # cuBLAS and kernel modules
+    torch.cuda.synchronize()
+    print(f"[zamba2-7b] warm-up: a {B} x 512 prefill after start-up took "
+          f"{1e3 * (time.perf_counter() - t0):.1f} ms")
+    captured = {}
+    real = (m2.causal_conv1d, m2.ssd, z2.flash_attention)
+
+    def capture_conv(x, w, b, mode="shuffle", activation=True):
+        captured.setdefault("conv", (x, w.detach(), b.detach()))
+        return real[0](x, w, b, mode=mode, activation=activation)
+
+    def capture_ssd(xh, dt, A, Bm, Cm, chunk):
+        captured.setdefault("ssd", (xh, dt, A, Bm, Cm, chunk))
+        return real[1](xh, dt, A, Bm, Cm, chunk)
+
+    def capture_flash(q, k, v, causal=True, scale=None):
+        captured.setdefault("flash", (q, k, v, causal, scale))
+        return real[2](q, k, v, causal=causal, scale=scale)
+
+    m2.causal_conv1d, m2.ssd, z2.flash_attention = capture_conv, capture_ssd, capture_flash
+    for mod in (tconv, tssd, tfa):
+        mod.reset_launch_counts()
+    times = {}
+    try:
+        out = step.generate(model, {"tokens": tokens}, 1, times=times)
+    finally:
+        m2.causal_conv1d, m2.ssd, z2.flash_attention = real
+    counts = {**tconv.launch_counts(), **tssd.launch_counts(), **tssd.instance_counts(),
+              **tfa.launch_counts(), **tfa.instance_counts()}
+    launches = {k: n for k, n in counts.items() if n}
+    if launches != want:
+        raise RuntimeError(f"zamba2-7b prefill: launches {launches}, expected {want}")
+    if out.shape != (B, 1) or out.min() < 0 or out.max() >= cfg.vocab:
+        raise RuntimeError(f"zamba2-7b prefill: tokens {tuple(out.shape)} out of range")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rec.update({"prefill_ms": 1e3 * times["prefill_s"], "launches": launches,
+                "peak_gib": peak})
+    print(f"[zamba2-7b] prefill {B} x {L}: {1e3 * times['prefill_s']:.1f} ms, peak "
+          f"{peak:.2f} GiB; launches " + " ".join(f"{k} {n}" for k, n in launches.items()))
+    del model, out, tokens
+    torch.cuda.empty_cache()
+    layer0_conv1d(kernels["conv"], captured.pop("conv"), launches, rec, entries,
+                  f"conv1d_shuffle[{ZAMBA2_7B}]", phase="zamba2-7b")
+    Bm = captured["ssd"][3]
+    if Bm.shape[2] != cfg.ssm_groups:
+        raise RuntimeError(f"zamba2-7b ssd: {Bm.shape[2]} B/C groups, expected {cfg.ssm_groups}")
+    layer0_ssd(kernels["ssd"], captured.pop("ssd"), launches, rec, entries,
+               f"ssd[{ZAMBA2_7B}]", phase="zamba2-7b")
+    zamba2_7b_flash(kernels["flash"], captured.pop("flash"), launches, rec, entries)
     torch.cuda.empty_cache()
 
 
@@ -2768,6 +2910,9 @@ def main() -> int:
     dev = "cuda"
     t_start = time.perf_counter()
     report = {"sass": {}, "medium": {}, "paper": {}}
+    only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv else None
+    if only not in (None, ZAMBA2_7B):
+        raise ValueError(f"--only {only!r}: the one phase run alone is {ZAMBA2_7B!r}")
 
     # -- 1. toolchain -------------------------------------------------------
     card = card_line()
@@ -2777,6 +2922,17 @@ def main() -> int:
           f"sm_{cap[0]}{cap[1]} | {nvcc} | {card}")
     if cap != (9, 0):
         raise RuntimeError(f"the kernels are built for sm_90a; device is sm_{cap[0]}{cap[1]}")
+
+    if only == ZAMBA2_7B:
+        entries = []
+        kernels = {"conv": dict(zip([(m, 4) for m in tconv.MODES],
+                                    tconv.build_kernels([(m, 4) for m in tconv.MODES]))),
+                   "ssd": tssd.build_kernel(), "flash": tfa.build_kernel()}
+        zamba2_7b_prefill(kernels, report, entries)
+        print(f"[done] {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print(json.dumps({"kernels": entries}))
+        return 0
 
     # -- 2. build: one nvcc per source, all started together -----------------
     conv_items = [(m, W) for W in CONV_WIDTHS for m in tconv.MODES]
@@ -3023,6 +3179,10 @@ def main() -> int:
         serving_path(arch, serving_kernels, report, entries)
     for arch in REDUCED_ONLY:
         reduced_card_vs_cpu(report["serving"].setdefault(arch, {}), arch)
+
+    # -- 7b. Zamba2-7B-Instruct at its published widths ------------------------
+    torch.cuda.empty_cache()
+    zamba2_7b_prefill(serving_kernels, report, entries)
 
     # -- 8. training: reduced card vs CPU, the loss falling, a checkpoint
     #       round trip; olmo-1b, mamba2-1.3b and granite at full width -------

@@ -21,4 +21,12 @@ from . import kimi_k2_1t_a32b  # noqa: F401
 from . import seamless_m4t_large_v2  # noqa: F401
 from . import llama_3_2_vision_90b  # noqa: F401
 
+#: the architectures the JAX package registers too (the tests hold each to
+#: its counterpart there)
 ARCHS = sorted(all_configs())
+
+# architectures of the port alone
+from . import zamba2_7b  # noqa: E402,F401
+
+#: every registered architecture
+PORT_ARCHS = sorted(all_configs())

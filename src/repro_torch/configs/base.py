@@ -16,7 +16,7 @@ from typing import Dict, Tuple
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | moe | vlm | ssm | hybrid | audio
+    family: str                    # dense | moe | vlm | ssm | hybrid | zamba2 | audio
     n_layers: int
     d_model: int
     vocab: int
@@ -37,6 +37,14 @@ class ModelConfig:
     conv_width: int = 4
     ssm_chunk: int = 256
     attn_every: int = 6            # hybrid: shared attn block per N ssm blocks
+    ssm_groups: int = 1            # B/C groups of the Mamba-2 mixers
+    # --- zamba2: Zyphra's shared blocks ---
+    hybrid_layer_ids: Tuple[int, ...] = ()  # layers whose mixer a shared block precedes
+    n_shared_blocks: int = 0       # shared blocks, applied in turn
+    adapter_rank: int = 0          # rank of each application's MLP adapter
+    attn_width: int = 0            # the shared attention's width (its input is
+                                   # [hidden, embedding], 2 x d_model wide)
+    norm_eps: float = 1e-6         # RMSNorm epsilon of the zamba2 family
     # --- VLM ---
     cross_every: int = 0           # a cross-attn layer every N layers
     n_media_tokens: int = 1600     # stub vision tokens (frontend is a stub)
@@ -121,6 +129,9 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         kw.update(ssm_state=16, ssm_head_dim=16, attn_every=2)
     if cfg.cross_every:
         kw.update(cross_every=2, n_layers=4)
+    if cfg.hybrid_layer_ids:
+        kw.update(n_layers=6, hybrid_layer_ids=(1, 2, 4, 5), adapter_rank=8, attn_width=128,
+                  ssm_groups=min(cfg.ssm_groups, 2))
     if cfg.n_encoder_layers:
         kw.update(n_encoder_layers=2)
     return cfg.replace(**kw)

@@ -5,11 +5,14 @@
 // flash_attention).  With q (B, Sq, H, Dh), k and v (B, Sk, KV, Dh), G = H / KV
 // and query head h reading kv head h / G:
 //
-//   o[b, i, h] = sum_j softmax_j(q[b, i, h] . k[b, j, h/G] / sqrt(Dh)) v[b, j, h/G]
+//   o[b, i, h] = sum_j softmax_j(q[b, i, h] . k[b, j, h/G] * scale) v[b, j, h/G]
 //
 // over the keys j < Sk, and j <= i when causal (the oracle's mask, aligned at
-// position 0).  The running max m, normaliser l and accumulator are float32;
-// the output is acc / max(l, 1e-30) in the input dtype.  Two instances; the
+// position 0).  scale is 1/sqrt(Dh) unless the caller gives another (Zamba2's
+// shared attention takes (Dh / 2)^-1/2); it is applied in float32 to the
+// raw scores, so q is never rescaled in memory.  The running max m,
+// normaliser l and accumulator are float32; the output is acc / max(l, 1e-30)
+// in the input dtype.  Two instances; the
 // wrapper (ops.py::select_instance) picks one from dtype, Dh and layout.
 //
 // Masks, in both.  Before the exponential, keys j >= Sk are masked always,
@@ -26,15 +29,24 @@
 // bound by its bytes, and then by the exponentials (one per kept score: the
 // special-function units do 16 a clock per SM, about the rate at which the
 // tensor cores do the 4 Dh = 256 FLOP of a score at Dh 64).
+// At Zamba2-7B's (8, 4096, 32, 224) causal the 1.88 GB of q, k, v and o
+// take 0.56 ms and the 1.93 TFLOP of kept products 1.95 ms: bound by the
+// products.
 //
-// 1. flash_tc: bf16 on the tensor cores (Dh 16, 32, 64, 128).  A CTA takes
-//    128 query rows of one (b, h): two consumer warpgroups of 64 rows and a
-//    producer warp, which fills a ring of three K/V stages with bulk tensor
-//    copies (TMA, swizzled 32/64/128 bytes to the tile's row), signalled on
-//    mbarriers, so the copies of later tiles overlap the products of this
-//    one.  Q K^T is wgmma m64n{64,128}k16 with both operands in shared
+// 1. flash_tc: bf16 on the tensor cores (Dh 16, 32, 64, 128, 224).  A CTA
+//    takes 128 query rows of one (b, h): two consumer warpgroups of 64 rows
+//    and a producer warp, which fills a ring of three K/V stages with bulk
+//    tensor copies (TMA, swizzled 32/64/128 bytes to the tile's row), signalled
+//    on mbarriers, so the copies of later tiles overlap the products of this
+//    one.  A row of Dh bf16 is cut into boxes of the widest swizzle span that
+//    divides it: Zamba2-7B's Dh 224 (448 bytes, 3.5 spans of 128) takes seven
+//    64-byte boxes, so no box reads past the head and the Q tile (56 KB) with
+//    three stages of 64-key K and V tiles (28 KB each) fill 225 KB of the
+//    227 KB a CTA may hold; P V then runs as seven m64n32 products a k-step,
+//    one per box, and O takes 112 registers a thread, so there the producer
+//    is a warpgroup that hands its registers to the consumers.  Q K^T is wgmma m64n{64,128}k16 with both operands in shared
 //    memory, K read K-major as it lies (key rows, Dh contiguous).  The
-//    scores stay in the accumulator's registers: the scale Dh^-1/2 log2(e)
+//    scores stay in the accumulator's registers: the scale times log2(e)
 //    is applied in float32 inside exp2 (q stays an exact bf16 operand), the
 //    row max and sum take two __shfl_xor_sync steps across the quad that
 //    holds a row, and P is converted to bf16 in place as the A operand of
@@ -68,7 +80,7 @@
 //    (whose tolerance, 2e-5, is below what TF32 or bf16 tensor cores give)
 //    and bf16 with Dh 8.  One CTA of 256 threads per (64-row query tile,
 //    b * H + h); the query tile staged once in shared memory as float32,
-//    pre-scaled by Dh^-1/2, and 64-row K/V tiles staged as float32 from
+//    pre-scaled by the scale, and 64-row K/V tiles staged as float32 from
 //    tile 0 up to the tile that holds the last query's diagonal.  A thread
 //    owns 4 query rows and the key columns tx + 16 c of the 64 x 64 score
 //    tile; the row max and sum are reduced over 16 lanes with
@@ -298,6 +310,7 @@ int launch_dh(const Args& a, int B, int Dh, cudaStream_t stream) {
     case 32: return launch_as<T, 32>(a, B, stream);
     case 64: return launch_as<T, 64>(a, B, stream);
     case 128: return launch_as<T, 128>(a, B, stream);
+    case 224: return launch_as<T, 224>(a, B, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -319,16 +332,22 @@ constexpr float kLog2e = 1.4426950408889634f;
 struct Params {
   __nv_bfloat16* o;    // (B, Sq, H, Dh) contiguous
   int Sq, Sk, H, G, causal, n_qtiles, bh;
-  float scale_log2;    // Dh^-1/2 * log2(e)
+  float scale_log2;    // the scores' scale (Dh^-1/2 by default) * log2(e)
 };
 
 // A CTA: two consumer warpgroups of 64 query rows each and one producer
-// warp; key tiles of kN rows.
+// warp; key tiles of kN rows.  Past Dh 128 the producer is a whole
+// warpgroup that gives its registers to the consumers (setmaxnreg): a
+// consumer holds O (Dh / 2 registers), the scores and P, 160 at Dh 224,
+// and 288 threads a CTA would leave it 168 (allocated as 12 warps), which
+// spills and serializes the wgmma.
 template <int Dh, int kN>
 struct Layout {
   static constexpr int rows = 64 * kConsumers;              // query rows of a CTA
-  static constexpr int threads = 128 * kConsumers + 32;
-  static constexpr int swz = Dh * 2 < 128 ? Dh * 2 : 128;   // bytes of a tile row
+  static constexpr bool wide = Dh > 128;                    // a producer warpgroup
+  static constexpr int threads = 128 * kConsumers + (wide ? 128 : 32);
+  // bytes of a box row: the widest swizzle span (128, 64 or 32) dividing a row
+  static constexpr int swz = (Dh * 2) % 128 == 0 ? 128 : (Dh * 2) % 64 == 0 ? 64 : 32;
   static constexpr int boxes = Dh * 2 / swz;                // column boxes of a row
   static constexpr int q_box = rows * swz;                  // bytes of a Q box
   static constexpr int kv_box = kN * swz;                   // bytes of a K or V box
@@ -358,7 +377,7 @@ struct Consumer {
   using L = Layout<Dh, kN>;
   static constexpr int swz = L::swz;
   static constexpr int kS = kN / 2;               // score registers per thread
-  static constexpr int kNB = Dh < 64 ? Dh : 64;   // N of one p.v product
+  static constexpr int kNB = swz / 2;            // N of one p.v product: one box
   static constexpr int kNBlocks = Dh / kNB;       // p.v products per k-step
   static constexpr int kAccO = Dh / 2;            // output registers per thread
 
@@ -369,7 +388,7 @@ struct Consumer {
   uint8_t *q, *k, *v;          // this warpgroup's Q rows; the K and V rings
   uint64_t *k_full, *v_full, *empty;
   int Sk, causal;
-  float c;                     // Dh^-1/2 log2(e)
+  float c;                     // the scale times log2(e)
   int first_row, row_lo, row_hi, lane;
 
   __device__ __forceinline__ Consumer(uint8_t* q_, uint8_t* k_, uint8_t* v_, uint64_t* kf,
@@ -414,16 +433,16 @@ struct Consumer {
       for (int nb = 0; nb < kNBlocks; ++nb) {
         const uint64_t dv = desc<swz, true>(tile + nb * L::kv_box + ks * 16 * swz);
         if constexpr (kNB == 64) hopper::wgmma_rs_n64<1>(o + 32 * nb, pa[ks], dv, 1);
-        else if constexpr (kNB == 32) hopper::wgmma_rs_n32<1>(o, pa[ks], dv, 1);
-        else hopper::wgmma_rs_n16<1>(o, pa[ks], dv, 1);
+        else if constexpr (kNB == 32) hopper::wgmma_rs_n32<1>(o + 16 * nb, pa[ks], dv, 1);
+        else hopper::wgmma_rs_n16<1>(o + 8 * nb, pa[ks], dv, 1);
       }
     }
     hopper::wgmma_commit();
   }
 
   // Mask (diagonal and ragged tiles only) before the exponential, with the
-  // reference's -1e30; the online softmax on raw scores, scaled by
-  // Dh^-1/2 log2(e) in float32 inside exp2.  Leaves p in S (float32) and
+  // reference's -1e30; the online softmax on raw scores, scaled by the
+  // scale times log2(e) in float32 inside exp2.  Leaves p in S (float32) and
   // the factor that O must be rescaled by in corr.
   __device__ __forceinline__ void softmax(int kt) {
     hopper::fence_regs<kS>(S);
@@ -526,6 +545,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
 
   if (tid >= 128 * kConsumers) {
     // ---- producer warp: Q once, then K and V tiles through the ring ----
+    if constexpr (L::wide) hopper::setmaxnreg_dec<40>();
     if (tid == 128 * kConsumers) {
       hopper::mbar_expect_tx(&q_full, L::q_bytes);
 #pragma unroll
@@ -550,6 +570,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
   }
 
   // ---- consumer warpgroup w: query rows q0 + 64 w .. q0 + 64 w + 63 ----
+  if constexpr (L::wide) hopper::setmaxnreg_inc<232>();
   // the warpgroup index through a shuffle: a value the compiler knows to be
   // uniform over the warp, so it does not serialize the products that
   // depend on it
@@ -661,11 +682,12 @@ int launch(const void* q, const void* k, const void* v, void* o, const long long
 }  // namespace flash_tc
 
 // dtype: 0 float32, 1 bfloat16.  strides: q_sb, q_ss, k_sb, k_ss, v_sb, v_ss
-// (elements).  dims: B, Sq, Sk, H, KV, Dh.  Returns the cudaError_t.
+// (elements).  dims: B, Sq, Sk, H, KV, Dh.  scale: the scores' factor, 0 for
+// 1/sqrt(Dh).  Returns the cudaError_t.
 extern "C" int launch_flash_attention(const void* q, const void* k, const void* v,
                                       void* o, const long long* strides,
                                       const int* dims, int dtype, int causal,
-                                      void* stream) {
+                                      float scale, void* stream) {
   flash::Args a;
   a.q = q; a.k = k; a.v = v; a.o = o;
   a.q_sb = strides[0]; a.q_ss = strides[1]; a.k_sb = strides[2];
@@ -676,19 +698,20 @@ extern "C" int launch_flash_attention(const void* q, const void* k, const void* 
   if (B < 1 || a.Sq < 1 || a.Sk < 1 || KV < 1 || a.H % KV || (long long)B * a.H > 65535)
     return (int)cudaErrorInvalidValue;
   a.G = a.H / KV;
-  a.scale = 1.0f / sqrtf((float)Dh);
+  a.scale = scale > 0.0f ? scale : 1.0f / sqrtf((float)Dh);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return flash::launch_dh<float>(a, B, Dh, st);
   if (dtype == 1) return flash::launch_dh<__nv_bfloat16>(a, B, Dh, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// The bf16 tensor-core instance: q, k, v bfloat16 with Dh 16, 32, 64 or 128,
-// every stride a multiple of 8 elements and every base 16-byte aligned.
+// The bf16 tensor-core instance: q, k, v bfloat16 with Dh 16, 32, 64, 128 or
+// 224, every stride a multiple of 8 elements and every base 16-byte aligned.
 // Arguments as above.  Returns the cudaError_t.
 extern "C" int launch_flash_attention_wgmma(const void* q, const void* k, const void* v,
                                             void* o, const long long* strides,
-                                            const int* dims, int causal, void* stream) {
+                                            const int* dims, int causal, float scale,
+                                            void* stream) {
   const int B = dims[0], KV = dims[4], Dh = dims[5];
   flash_tc::Params p;
   p.o = nullptr;
@@ -697,13 +720,14 @@ extern "C" int launch_flash_attention_wgmma(const void* q, const void* k, const 
   if (B < 1 || p.Sq < 1 || p.Sk < 1 || KV < 1 || p.H % KV || (long long)B * p.H > 65535)
     return (int)cudaErrorInvalidValue;
   p.G = p.H / KV;
-  p.scale_log2 = flash_tc::kLog2e / sqrtf((float)Dh);
+  p.scale_log2 = scale > 0.0f ? flash_tc::kLog2e * scale : flash_tc::kLog2e / sqrtf((float)Dh);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (Dh) {
     case 16: return flash_tc::launch<16, 128>(q, k, v, o, strides, B, KV, p, st);
     case 32: return flash_tc::launch<32, 128>(q, k, v, o, strides, B, KV, p, st);
     case 64: return flash_tc::launch<64, 128>(q, k, v, o, strides, B, KV, p, st);
     case 128: return flash_tc::launch<128, 64>(q, k, v, o, strides, B, KV, p, st);
+    case 224: return flash_tc::launch<224, 64>(q, k, v, o, strides, B, KV, p, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

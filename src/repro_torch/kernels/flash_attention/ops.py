@@ -37,12 +37,13 @@ SOURCE = CSRC / "flash_attention.cu"
 
 #: rows of the kernel's query and key tiles (``kTile`` in the source)
 KEY_TILE = 64
-#: the head dims the kernel is instantiated for
-HEAD_DIMS = (8, 16, 32, 64, 128)
+#: the head dims the kernel is instantiated for (224: Zamba2-7B's shared
+#: attention)
+HEAD_DIMS = (8, 16, 32, 64, 128, 224)
 
 #: the head dims of the bf16 tensor-core instance, and the key tile it
 #: walks at each (``flash_tc::launch<Dh, kN>`` in the source)
-TENSOR_CORE_KEY_TILE = {16: 128, 32: 128, 64: 128, 128: 64}
+TENSOR_CORE_KEY_TILE = {16: 128, 32: 128, 64: 128, 128: 64, 224: 64}
 TENSOR_CORE_HEAD_DIMS = tuple(TENSOR_CORE_KEY_TILE)
 #: the kernel's instances: bf16 on the tensor cores (wgmma, TMA-fed tiles)
 #: and the float32-arithmetic instance on the CUDA cores (float32, and bf16
@@ -93,14 +94,15 @@ class FlashAttentionKernel(InstanceCounts):
         self.library = library
         self._fn = library.lib.launch_flash_attention
         self._fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
-                             + [ctypes.c_void_p])
+                             + [ctypes.c_float, ctypes.c_void_p])
         self._fn.restype = ctypes.c_int
         self._fn_tc = library.lib.launch_flash_attention_wgmma
-        self._fn_tc.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
+        self._fn_tc.argtypes = ([ctypes.c_void_p] * 6
+                                + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
         self._fn_tc.restype = ctypes.c_int
 
     def __call__(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 causal: bool = True) -> torch.Tensor:
+                 causal: bool = True, scale: Optional[float] = None) -> torch.Tensor:
         dev = q.device
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.device.type != "cuda" or t.device != dev:
@@ -124,6 +126,8 @@ class FlashAttentionKernel(InstanceCounts):
             return out
         if Sk == 0:
             raise ValueError("attention over zero keys")
+        if scale is not None and not scale > 0:
+            raise ValueError(f"scale {scale}: expected a positive factor")
         strides = (ctypes.c_longlong * 6)(q.stride(0), q.stride(1), k.stride(0),
                                           k.stride(1), v.stride(0), v.stride(1))
         dims = (ctypes.c_int * 6)(B, Sq, Sk, H, KV, Dh)
@@ -131,10 +135,12 @@ class FlashAttentionKernel(InstanceCounts):
         ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides, dims)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
+            # 0 asks the kernel for its own 1/sqrt(Dh), the default's bits
+            factor = 0.0 if scale is None else scale
             if instance == "tensor_core":
-                rc = self._fn_tc(*ptrs, int(causal), stream)
+                rc = self._fn_tc(*ptrs, int(causal), factor, stream)
             else:
-                rc = self._fn(*ptrs, _DTYPE_CODE[q.dtype], int(causal), stream)
+                rc = self._fn(*ptrs, _DTYPE_CODE[q.dtype], int(causal), factor, stream)
         if rc != 0:
             raise RuntimeError(f"flash_attention ({instance}): kernel launch "
                                f"failed (cudaError {rc})")
@@ -171,14 +177,14 @@ def reset_launch_counts() -> None:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
-    """q: (B, Sq, H, Dh); k, v: (B, Sk, KV, Dh); H % KV == 0.
-    Returns (B, Sq, H, Dh) in q's dtype; on the card differentiable
-    through the plain version."""
+                    causal: bool = True, scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B, Sq, H, Dh); k, v: (B, Sk, KV, Dh); H % KV == 0.  ``scale``
+    multiplies the scores, 1/sqrt(Dh) if None.  Returns (B, Sq, H, Dh) in
+    q's dtype; on the card differentiable through the plain version."""
     if q.device.type in PLAIN_DEVICES:
         check_contract(q, k, v, causal)
-        return attn_ref.attention_ref(q, k, v, causal=causal)
+        return attn_ref.attention_ref(q, k, v, causal=causal, scale=scale)
     kernel = build_kernel()
-    return with_plain_grad("flash", lambda *a: kernel(*a, causal),
-                           lambda *a: attn_ref.attention_ref(*a, causal=causal),
+    return with_plain_grad("flash", lambda *a: kernel(*a, causal, scale),
+                           lambda *a: attn_ref.attention_ref(*a, causal=causal, scale=scale),
                            q, k, v)

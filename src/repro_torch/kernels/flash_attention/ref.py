@@ -4,14 +4,15 @@
 
 The CPU path of :func:`repro_torch.kernels.flash_attention.flash_attention`,
 and the version the CUDA kernel is held against on the card: float32
-scores scaled by Dh^-1/2, masked with -1e30, a softmax, then P.V, with
-the O(S^2) score tensor materialized.  ``models.attention.naive_attention``
+scores scaled by Dh^-1/2 (or by a given ``scale``), masked with -1e30, a
+softmax, then P.V, with the O(S^2) score tensor materialized.  ``models.attention.naive_attention``
 is this function.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -19,15 +20,18 @@ NEG_INF = -1e30          # the reference's mask value (not -inf)
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+                  causal: bool = True, q_offset: int = 0,
+                  scale: Optional[float] = None) -> torch.Tensor:
     """q: (B, Sq, H, Dh); k, v: (B, Sk, KV, Dh); H % KV == 0.  The causal
-    mask keeps key j for query i when q_offset + i >= j.  Returns
-    (B, Sq, H, Dh) in q's dtype."""
+    mask keeps key j for query i when q_offset + i >= j; the scores are
+    scaled by ``scale``, Dh^-1/2 if None.  Returns (B, Sq, H, Dh) in q's
+    dtype."""
     B, Sq, H, Dh = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
     qr = q.reshape(B, Sq, KV, G, Dh).float()
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qr, k.float()) / math.sqrt(Dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qr, k.float())
+    s = s / math.sqrt(Dh) if scale is None else s * scale
     if causal:
         qp = q_offset + torch.arange(Sq, device=q.device)
         mask = qp[:, None] >= torch.arange(Sk, device=q.device)[None, :]
@@ -39,18 +43,19 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, key_tile: int = 64,
-                    round_p: bool = False) -> torch.Tensor:
+                    round_p: bool = False, scale: Optional[float] = None) -> torch.Tensor:
     """The online softmax over tiles of ``key_tile`` keys, in the order and
     base of the bf16 tensor-core instance: raw scores q.k in float32, the
     mask (-1e30) before the exponential, p = 2^(s c - m c) with c =
-    Dh^-1/2 log2(e) against the running max m, l the sum of the float32 p.
+    scale log2(e) (scale Dh^-1/2 if None) against the running max m, l the
+    sum of the float32 p.
     With ``round_p`` each tile's p enters P V rounded to bf16, the one
     operand the kernel rounds.  Same arguments and result as
     :func:`attention_ref`; a plain version used by no main path."""
     B, Sq, H, Dh = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
-    c = math.log2(math.e) / math.sqrt(Dh)
+    c = math.log2(math.e) / math.sqrt(Dh) if scale is None else math.log2(math.e) * scale
     qf = q.reshape(B, Sq, KV, G, Dh).float()
     rows = torch.arange(Sq, device=q.device)
     m = torch.full((B, KV, G, Sq), NEG_INF, dtype=torch.float32, device=q.device)

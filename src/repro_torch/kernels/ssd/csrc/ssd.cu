@@ -8,8 +8,9 @@
 //         + exp(cum_i) C_i . S                                          (inter)
 //   S'    = exp(cum_Q) S + sum_j exp(cum_Q - cum_j) dt_j B_j^T x_j      (carry)
 //
-// with x (Q, P), B and C (Q, N) (one group shared by every head), and the state
-// S (N, P) in float32, zero at the first chunk.  The final S is written out:
+// with x (Q, P), B and C (Q, N) of head h's B/C group h / (H / G) (Mamba-2
+// has one group shared by every head, Zamba2-7B two, each shared by 56
+// heads), and the state S (N, P) in float32, zero at the first chunk.  The final S is written out:
 // the serving path needs it for decode (the Pallas kernel drops it).  The mask
 // comes before the exponential: above the diagonal exp(cum_i - cum_j)
 // overflows, and inf * 0 would give NaN.  Two instances; the wrapper
@@ -19,7 +20,8 @@
 // bf16) the function moves 78.6 MB (x and y 33.5 MB each, B, C, dt, the final
 // state): 0.0235 ms at 3.35 TB/s; its work, 13.0 GFLOP, takes 0.013 ms at the
 // bf16 tensor-core rate.  Zamba2's (N 64): 73.4 MB, 0.0219 ms.  Bound by
-// bytes.
+// bytes.  Zamba2-7B's cell at its largest (B 8, L 4096, H 112, N 64, G 2):
+// 986 MB, 0.294 ms, against 0.185 ms of products.
 //
 // 1. ssd_tc: bf16 on the tensor cores (P 64, N 64 or 128, Q a multiple of 64
 //    up to 256): the three passes of the Mamba-2 SSD algorithm, three kernels
@@ -39,7 +41,9 @@
 //       goes to device memory but as the final state.
 //    c. chunk scan (scan_kernel), CTA (8 heads, chunk and 64-row tile I,
 //       batch), 4 x 16 x 8 = 512 CTAs at the serving shape: C_I B_J^T formed
-//       once for the CTA's heads (one B/C group); the diagonal tile's decayed
+//       once for the CTA's heads (one B/C group: a CTA's heads, 4 in pass a
+//       and 8 here, are taken from one group, so they divide H / G); the
+//       diagonal tile's decayed
 //       scores in registers, the tiles below it as exp(cum_i - cum_e)
 //       (C_I B_<I^T)(g x_<I), g_j = exp(cum_e - cum_j) dt_j, e the row
 //       before the tile, every factor at most 1; plus pass b's state term.
@@ -90,12 +94,13 @@ struct Args {
   const void* x;       // (B, L, H, P), strides x_sb, x_sl, P, 1
   const float* dt;     // (B, L, H), strides dt_sb, dt_sl, 1
   const float* A;      // (H,)
-  const void* Bm;      // (B, L, 1, N), strides b_sb, b_sl, -, 1
-  const void* Cm;      // (B, L, 1, N), strides c_sb, c_sl, -, 1
+  const void* Bm;      // (B, L, G, N), strides b_sb, b_sl, b_sg, 1
+  const void* Cm;      // (B, L, G, N), strides c_sb, c_sl, c_sg, 1
   void* y;             // (B, L, H, P) contiguous
   float* state;        // (B, H, N, P) contiguous
   int L, H, P, N, Q;
-  long long x_sb, x_sl, dt_sb, dt_sl, b_sb, b_sl, c_sb, c_sl;
+  int hpg;             // heads per B/C group, H / G
+  long long x_sb, x_sl, dt_sb, dt_sl, b_sb, b_sl, c_sb, c_sl, b_sg, c_sg;
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -131,8 +136,9 @@ __global__ void __launch_bounds__(kThreads) ssd_kernel(Args a) {
   const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
   const float Ah = a.A[h];
   const T* xb = static_cast<const T*>(a.x) + b * a.x_sb + (long long)h * P;
-  const T* Bb = static_cast<const T*>(a.Bm) + b * a.b_sb;
-  const T* Cb = static_cast<const T*>(a.Cm) + b * a.c_sb;
+  const int g = h / a.hpg;                     // the head's B/C group
+  const T* Bb = static_cast<const T*>(a.Bm) + b * a.b_sb + g * a.b_sg;
+  const T* Cb = static_cast<const T*>(a.Cm) + b * a.c_sb + g * a.c_sg;
   const float* dtb = a.dt + b * a.dt_sb + h;
   T* yb = static_cast<T*>(a.y) + (long long)b * a.L * a.H * P + (long long)h * P;
 
@@ -356,7 +362,8 @@ struct Args {
                        //   chunks 1 .. nc - 1 per 64-row tile, in the chunk
                        //   scan's accumulator order (chunk 0 has no state term)
   int L, H, N, Q, nc;
-  int hg, hs;          // heads per CTA of pass a and of pass c
+  int hg, hs;          // heads per CTA of pass a and of pass c; each divides hpg
+  int hpg;             // heads per B/C group, H / G
   long long dt_sb, dt_sl;
 };
 
@@ -396,8 +403,8 @@ states_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CU
       hopper::mbar_expect_tx(&b_full, kNT * kQT * kBox);
       for (int mt = 0; mt < kNT; ++mt)
         for (int jt = 0; jt < kQT; ++jt)
-          hopper::tma_load_4d(sB + (mt * kQT + jt) * kBox, &tb, &b_full, 64 * mt, 0,
-                              l0 + 64 * jt, b);
+          hopper::tma_load_4d(sB + (mt * kQT + jt) * kBox, &tb, &b_full, 64 * mt,
+                              blockIdx.x * a.hg / a.hpg, l0 + 64 * jt, b);
       for (int hi = 0; hi < a.hg; ++hi) {        // head hi: warpgroup hi % 2, its
         const int k = hi / 2, s = 2 * (hi % 2) + k % 2;     // k-th head, stage s
         const int h = blockIdx.x * a.hg + hi;
@@ -533,8 +540,8 @@ pass_kernel(const __grid_constant__ CUtensorMap tc, Args a) {
         hopper::mbar_expect_tx(&c_full, kQT * kNT * kBox);
         for (int mt = 0; mt < kQT; ++mt)
           for (int nt = 0; nt < kNT; ++nt)
-            hopper::tma_load_4d(sC + (mt * kNT + nt) * kBox, &tc, &c_full, 64 * nt, 0,
-                                c * Q + 64 * mt, b);
+            hopper::tma_load_4d(sC + (mt * kNT + nt) * kBox, &tc, &c_full, 64 * nt,
+                                h / a.hpg, c * Q + 64 * mt, b);
       }
     }
     return;
@@ -671,12 +678,13 @@ scan_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUte
   if (tid >= 256) {
     hopper::setmaxnreg_dec<40>();
     if (tid == 256) {
+      const int g = blockIdx.x * a.hs / a.hpg;   // the CTA's B/C group
       hopper::mbar_expect_tx(&cb_full, kNT * (it + 2) * kBox);
       for (int nt = 0; nt < kNT; ++nt)
-        hopper::tma_load_4d(sC + nt * kBox, &tc, &cb_full, 64 * nt, 0, l0 + i0, b);
+        hopper::tma_load_4d(sC + nt * kBox, &tc, &cb_full, 64 * nt, g, l0 + i0, b);
       for (int J = 0; J <= it; ++J)
         for (int nt = 0; nt < kNT; ++nt)
-          hopper::tma_load_4d(sB + (J * kNT + nt) * kBox, &tb, &cb_full, 64 * nt, 0,
+          hopper::tma_load_4d(sB + (J * kNT + nt) * kBox, &tb, &cb_full, 64 * nt, g,
                               l0 + 64 * J, b);
       const uint32_t vec = (i0 + 64) * sizeof(float);
       for (int hi = 0; hi < a.hs; ++hi) {        // head hi: warpgroup hi % 2, its
@@ -926,7 +934,8 @@ int launch_as(const Maps& m, const Args& a, int B, cudaStream_t st) {
 }  // namespace ssd_tc
 
 // dtype: 0 float32, 1 bfloat16.  strides: x_sb, x_sl, dt_sb, dt_sl, b_sb, b_sl,
-// c_sb, c_sl (elements).  dims: B, L, H, P, N, Q.  Returns the cudaError_t.
+// c_sb, c_sl, b_sg, c_sg (elements).  dims: B, L, H, P, N, Q, G.  Returns the
+// cudaError_t.
 extern "C" int launch_ssd(const void* x, const float* dt, const float* A,
                           const void* Bm, const void* Cm, void* y, float* state,
                           const long long* strides, const int* dims, int dtype,
@@ -935,11 +944,13 @@ extern "C" int launch_ssd(const void* x, const float* dt, const float* A,
   a.x = x; a.dt = dt; a.A = A; a.Bm = Bm; a.Cm = Cm; a.y = y; a.state = state;
   a.x_sb = strides[0]; a.x_sl = strides[1]; a.dt_sb = strides[2]; a.dt_sl = strides[3];
   a.b_sb = strides[4]; a.b_sl = strides[5]; a.c_sb = strides[6]; a.c_sl = strides[7];
-  const int B = dims[0];
+  a.b_sg = strides[8]; a.c_sg = strides[9];
+  const int B = dims[0], G = dims[6];
   a.L = dims[1]; a.H = dims[2]; a.P = dims[3]; a.N = dims[4]; a.Q = dims[5];
   if (a.Q < 1 || a.Q > ssd::kMaxQ || a.N < 1 || a.N > ssd::kMaxN || a.P < 4 ||
-      a.P > ssd::kMaxP || a.P % 4 || a.L % a.Q)
+      a.P > ssd::kMaxP || a.P % 4 || a.L % a.Q || G < 1 || a.H % G)
     return (int)cudaErrorInvalidValue;
+  a.hpg = a.H / G;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return ssd::launch_as<float>(a, B, st);
   if (dtype == 1) return ssd::launch_as<__nv_bfloat16>(a, B, st);
@@ -948,7 +959,7 @@ extern "C" int launch_ssd(const void* x, const float* dt, const float* A,
 
 // The bf16 tensor-core path: x, B, C bfloat16 with P 64, N 64 or 128 and Q a
 // multiple of 64 up to 256; x, B and C with 16-byte aligned bases and strides
-// that are multiples of 8 elements.  Scratch from the caller, float32: cum
+// that are multiples of 8 elements; G groups of B and C, H / G heads each.  Scratch from the caller, float32: cum
 // and dtc (B, H, nc, Q), dS (B, nc, H, N, P) and y_state (B, nc - 1, H, Q, P).
 // Strides and dims as above.  Three kernels on the stream; returns the first
 // cudaError_t.
@@ -961,14 +972,15 @@ extern "C" int launch_ssd_wgmma(const void* x, const float* dt, const float* A,
   a.dt = dt; a.A = A; a.y = static_cast<__nv_bfloat16*>(y); a.state = state;
   a.cum = cum; a.dtc = dtc; a.dS = dS; a.y_state = y_state;
   a.dt_sb = strides[2]; a.dt_sl = strides[3];
-  const int B = dims[0], P = dims[3];
+  const int B = dims[0], P = dims[3], G = dims[6];
   a.L = dims[1]; a.H = dims[2]; a.N = dims[4]; a.Q = dims[5];
   if (B < 1 || B > 65535 || a.H < 1 || a.H > 65535 || P != 64 || (a.N != 64 && a.N != 128) ||
-      a.Q < 64 || a.Q > 256 || a.Q % 64 || a.L % a.Q)
+      a.Q < 64 || a.Q > 256 || a.Q % 64 || a.L % a.Q || G < 1 || a.H % G)
     return (int)cudaErrorInvalidValue;
   a.nc = a.L / a.Q;
-  a.hg = a.H % 4 == 0 ? 4 : a.H % 2 == 0 ? 2 : 1;
-  a.hs = a.H % 8 == 0 ? 8 : a.hg;
+  a.hpg = a.H / G;                 // a CTA's heads lie in one group
+  a.hg = a.hpg % 4 == 0 ? 4 : a.hpg % 2 == 0 ? 2 : 1;
+  a.hs = a.hpg % 8 == 0 ? 8 : a.hg;
   if ((long long)a.nc * (a.Q / 64) > 65535) return (int)cudaErrorInvalidValue;
 
   ssd_tc::Maps m;
@@ -976,9 +988,10 @@ extern "C" int launch_ssd_wgmma(const void* x, const float* dt, const float* A,
   const uint32_t box[4] = {64, 1, 64, 1};
   const uint64_t xd[4] = {64, H, L, (uint64_t)B};
   const uint64_t xs[3] = {64 * eb, strides[1] * eb, strides[0] * eb};
-  const uint64_t bd[4] = {N, 1, L, (uint64_t)B};
-  const uint64_t bs[3] = {N * eb, strides[5] * eb, strides[4] * eb};
-  const uint64_t cs[3] = {N * eb, strides[7] * eb, strides[6] * eb};
+  // the group axis; with one group its stride is never stepped
+  const uint64_t bd[4] = {N, (uint64_t)G, L, (uint64_t)B};
+  const uint64_t bs[3] = {(G > 1 ? strides[8] : N) * eb, strides[5] * eb, strides[4] * eb};
+  const uint64_t cs[3] = {(G > 1 ? strides[9] : N) * eb, strides[7] * eb, strides[6] * eb};
   int err = hopper::tensor_map_bf16(&m.x, x, xd, xs, box, 128);
   if (!err) err = hopper::tensor_map_bf16(&m.b, Bm, bd, bs, box, 128);
   if (!err) err = hopper::tensor_map_bf16(&m.c, Cm, bd, cs, box, 128);

@@ -1120,7 +1120,8 @@ extern "C" long long ssd_bwd_scratch(const int* dims) {
 // that are multiples of 8 elements): dy (B, L, H, P) bf16 contiguous,
 // d_final (B, H, N, P) float32 contiguous or null; out dx (B, L, H, P) and
 // dB, dC (B, L, N) bf16, ddt (B, L, H) and dA (H,) float32, all contiguous;
-// scratch of ssd_bwd_scratch floats.  Strides and dims as launch_ssd's.
+// scratch of ssd_bwd_scratch floats.  Strides and dims: launch_ssd's first
+// eight and first six (one B/C group).
 // Eight kernels on the stream; returns the first cudaError_t.
 extern "C" int launch_ssd_bwd(const void* x, const float* dt, const float* A, const void* Bm,
                               const void* Cm, const void* dy, const float* d_final, void* dx,
@@ -1191,6 +1192,7 @@ extern "C" int launch_ssd_bwd(const void* x, const float* dt, const float* A, co
   fa.nc = a.nc;
   fa.hg = H % 4 == 0 ? 4 : H % 2 == 0 ? 2 : 1;
   fa.hs = 1;
+  fa.hpg = H;                    // one B/C group
   fa.dt_sb = strides[2];
   fa.dt_sl = strides[3];
   ssd_tc::Maps m;

@@ -9,12 +9,14 @@ instance (three CUDA kernels) or its float32-arithmetic one, as
 :func:`select_instance` says.  x, B and C may be
 views with any batch and position strides (the model passes slices of
 the conv output without copying them); their last dimensions must be
-contiguous.  On inputs that need a gradient, a call on the tensor-core
-instance runs through :class:`SSDFunction`, whose backward is
-:class:`SSDBwdKernel` (``csrc/ssd_bwd.cu``: eight CUDA kernels on the
-tensor cores, the factoring of :func:`ref.ssd_passes_bwd`); any other call
-runs through :class:`~repro_torch.kernels.autograd.PlainGrad`, whose
-backward is autograd of :func:`ref.ssd_chunked`.
+contiguous.  B and C hold G groups (Mamba-2 one, Zamba2-7B two); head h
+reads group h // (H / G).  On inputs that need a gradient, a call on the
+tensor-core instance with one group runs through :class:`SSDFunction`,
+whose backward is :class:`SSDBwdKernel` (``csrc/ssd_bwd.cu``: eight CUDA
+kernels on the tensor cores, the factoring of :func:`ref.ssd_passes_bwd`,
+which sums dB and dC over all the heads); any other call, G > 1
+included, runs through :class:`~repro_torch.kernels.autograd.PlainGrad`,
+whose backward is autograd of :func:`ref.ssd_chunked`.
 """
 
 from __future__ import annotations
@@ -109,11 +111,10 @@ class SSDKernel(InstanceCounts):
                              "Bm and Cm (B,L,G,N)")
         B, L, H, P = xh.shape
         G, N = Bm.shape[2], Bm.shape[3]
-        if G != 1:
-            raise ValueError(f"the kernel broadcasts one B/C group over the "
-                             f"heads; got G = {G}")
+        if G < 1 or H % G:
+            raise ValueError(f"{H} heads are not a multiple of {G} B/C groups")
         if (tuple(dt.shape) != (B, L, H) or tuple(A.shape) != (H,)
-                or tuple(Bm.shape) != (B, L, 1, N) or tuple(Cm.shape) != (B, L, 1, N)):
+                or tuple(Bm.shape) != (B, L, G, N) or tuple(Cm.shape) != (B, L, G, N)):
             raise ValueError(f"shapes xh {tuple(xh.shape)}, dt {tuple(dt.shape)}, "
                              f"A {tuple(A.shape)}, Bm {tuple(Bm.shape)}, "
                              f"Cm {tuple(Cm.shape)} do not agree")
@@ -128,17 +129,19 @@ class SSDKernel(InstanceCounts):
         if B > 65535:
             raise ValueError(f"batch {B} exceeds the launch grid")
         if (xh.stride(3) != 1 or xh.stride(2) != P or dt.stride(2) != 1
-                or not A.is_contiguous() or Bm.stride(3) != 1 or Cm.stride(3) != 1):
-            raise ValueError("xh's (H, P), dt's H, A, and Bm's and Cm's N "
+                or not A.is_contiguous() or Bm.stride(3) != 1 or Cm.stride(3) != 1
+                or (G > 1 and (Bm.stride(2) != N or Cm.stride(2) != N))):
+            raise ValueError("xh's (H, P), dt's H, A, and Bm's and Cm's (G, N) "
                              "must be contiguous")
         y = torch.empty((B, L, H, P), dtype=xh.dtype, device=dev)
         state = torch.empty((B, H, N, P), dtype=torch.float32, device=dev)
         if y.numel() == 0:
             return y, state.zero_()
-        strides = (ctypes.c_longlong * 8)(
+        strides = (ctypes.c_longlong * 10)(
             xh.stride(0), xh.stride(1), dt.stride(0), dt.stride(1),
-            Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1))
-        dims = (ctypes.c_int * 6)(B, L, H, P, N, chunk)
+            Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1),
+            Bm.stride(2), Cm.stride(2))
+        dims = (ctypes.c_int * 7)(B, L, H, P, N, chunk, G)
         instance = select_instance(xh, Bm, Cm, chunk)
         ptrs = (xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
                 Cm.data_ptr(), y.data_ptr(), state.data_ptr())
@@ -293,17 +296,18 @@ def ssd(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         Bm: torch.Tensor, Cm: torch.Tensor, chunk: int
         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """SSD forward.  xh: (B, L, H, P); dt: (B, L, H) float32 post-softplus;
-    A: (H,) float32 negative; Bm, Cm: (B, L, 1, N).  L % chunk == 0.
+    A: (H,) float32 negative; Bm, Cm: (B, L, G, N), H % G == 0.  L % chunk
+    == 0.
 
     Returns (y (B, L, H, P), final_state (B, H, N, P) float32); on the card
-    differentiable through the backward kernel (tensor-core instance) or
-    the plain version (any other).
+    differentiable through the backward kernel (tensor-core instance, one
+    group) or the plain version (any other).
     """
     if xh.device.type in PLAIN_DEVICES:
         return ssd_ref.ssd_chunked(xh, dt, A, Bm, Cm, chunk)
     kernel = build_kernel()
     if (torch.is_grad_enabled() and any(t.requires_grad for t in (xh, dt, A, Bm, Cm))
-            and select_instance(xh, Bm, Cm, chunk) == "tensor_core"):
+            and Bm.shape[2] == 1 and select_instance(xh, Bm, Cm, chunk) == "tensor_core"):
         return SSDFunction.apply(chunk, xh, dt, A, Bm, Cm)
     return with_plain_grad("ssd", lambda *a: kernel(*a, chunk),
                            lambda *a: ssd_ref.ssd_chunked(*a, chunk),

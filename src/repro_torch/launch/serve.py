@@ -5,8 +5,9 @@ Serves every registered arch: the dense transformers (``olmo-1b``,
 ``yi-9b``, ``starcoder2-3b``, ``deepseek-67b``), the MoE
 ``granite-moe-1b-a400m`` and ``kimi-k2-1t-a32b``, ``mamba2-1.3b``
 (attention-free), ``zamba2-1.2b`` (hybrid: Mamba-2 blocks and one shared
-attention block), the VLM ``llama-3.2-vision-90b`` and the enc-dec
-``seamless-m4t-large-v2``.  Requests come from the synthetic
+attention block), ``zamba2-7b`` (Zyphra's two shared blocks over grouped
+Mamba-2 mixers; the port's own family), the VLM ``llama-3.2-vision-90b``
+and the enc-dec ``seamless-m4t-large-v2``.  Requests come from the synthetic
 ``TokenPipeline``; the weights are random, drawn on the device from
 ``--seed``; the VLM's media and the enc-dec's frames are zeros of the
 reference's shapes (the modality frontends are stubs).  On the card the
@@ -33,7 +34,7 @@ import time
 
 import torch
 
-from repro_torch.configs import ARCHS, get_config, reduced
+from repro_torch.configs import PORT_ARCHS, get_config, reduced
 from repro_torch.data import DataConfig, TokenPipeline
 from repro_torch.models import build_model
 from repro_torch.serve import generate
@@ -54,7 +55,7 @@ def stub_inputs(cfg, batch: int, device) -> dict:
 def main(argv=None) -> dict:
     """Returns the generated tokens, the timings and the model served."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="mamba2-1.3b", choices=ARCHS)
+    ap.add_argument("--arch", default="mamba2-1.3b", choices=PORT_ARCHS)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--batch", type=int, default=4)

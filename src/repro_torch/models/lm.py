@@ -909,8 +909,10 @@ class EncDecModel(Model):
                                       "memory": memory, "pos": pos + 1}
 
 
+from .zamba2 import Zamba2Model  # noqa: E402  (built on SSMModel, defined above)
+
 _FAMILIES = {"dense": Model, "moe": Model, "vlm": VLMModel, "ssm": SSMModel,
-             "hybrid": HybridModel, "audio": EncDecModel}
+             "hybrid": HybridModel, "zamba2": Zamba2Model, "audio": EncDecModel}
 
 
 def build_model(cfg: ModelConfig, device: str = "cuda",

@@ -42,6 +42,7 @@ class SSMConfig(NamedTuple):
     chunk: int = 256
     dt_min: float = 1e-3
     dt_max: float = 1e-1
+    norm_eps: float = 1e-6         # the gated RMSNorm's epsilon
 
     @property
     def d_inner(self) -> int:
@@ -98,6 +99,19 @@ def conv_state_after(conv_in: torch.Tensor, W: int) -> torch.Tensor:
     return F.pad(conv_in, (0, 0, W - 1 - L, 0))
 
 
+def gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+               groups: int, eps: float) -> torch.Tensor:
+    """RMSNorm(y * silu(z)) with its statistics taken over each of
+    ``groups`` equal parts of the last axis (Zamba2's ``Zamba2RMSNormGated``
+    normalises each B/C group's channels on its own); one group is the
+    RMSNorm over all of d_inner."""
+    h = y * F.silu(z)
+    if groups == 1:
+        return rmsnorm(h, scale, eps)
+    h = rmsnorm(h.unflatten(-1, (groups, -1)), None, eps).flatten(-2)
+    return h * scale.to(h.dtype)
+
+
 def _split_proj(params: Params, x: torch.Tensor, cfg: SSMConfig):
     """(z, conv input, dt): views of the in-projection's columns; the conv
     input is xin|B|C, one contiguous column range."""
@@ -141,7 +155,7 @@ class Mamba2(nn.Module):
             y, s_final = ssd(xh, dt, A, Bm, Cm, chunk)
         y = y + p["d_skip"][None, None, :, None] * xh
         y = y.reshape(Bsz, L, cfg.d_inner).to(x.dtype)
-        y = rmsnorm(y * F.silu(z), p["norm_scale"])
+        y = gated_norm(y, z, p["norm_scale"], ng, cfg.norm_eps)
         with span("mamba2.out_proj", M=Bsz * L, K=y.shape[2], N=D, dtype=y.dtype):
             out = torch.matmul(y, p["w_out"]).to(x.dtype)
         if return_state:
@@ -169,6 +183,6 @@ class Mamba2(nn.Module):
         y = torch.einsum("bhn,bhnp->bhp", Cm.float(), ssm_state)
         y = y + p["d_skip"][None, :, None] * xh
         y = y.reshape(Bsz, cfg.d_inner).to(x_t.dtype)
-        y = rmsnorm(y * F.silu(z), p["norm_scale"])
+        y = gated_norm(y, z, p["norm_scale"], ng, cfg.norm_eps)
         out = torch.matmul(y, p["w_out"]).to(x_t.dtype)
         return out, (conv_state, ssm_state)

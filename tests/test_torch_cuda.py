@@ -222,12 +222,34 @@ def test_conv1d_reads_a_column_slice_in_place(card, pad, dtype):
         assert got.is_contiguous()
 
 
-def _ssd_inputs(B, L, H, P, N, dtype, seed):
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_conv1d_at_zamba2_7b_width(card, dtype):
+    """Zamba2-7B's 7,424 channels (x 7168 and two groups of B and C of 64)
+    read in place from its 14,704-wide in-projection at column 7168, as the
+    mixer passes them: both modes against the plain version, bitwise equal
+    to each other and to the same data made contiguous."""
+    B, L, C, W = 2, 1024, 7424, 4
+    rng = np.random.default_rng(7424)
+    proj = _randn((B, L, 14704), DTYPES[dtype], rng)
+    x = proj[..., 7168:7168 + C]
+    w = _randn((W, C), DTYPES[dtype], rng, 0.5)
+    b = _randn((C,), DTYPES[dtype], rng, 0.5)
+    want = tconv.ref.causal_conv1d(x, w, b)
+    outs = [k(x, w, b) for k in tconv.build_kernels([(m, W) for m in tconv.MODES])]
+    torch.cuda.synchronize()
+    tol = CONV_TOL[dtype]
+    for out in outs:
+        torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(outs[0], tconv.build_kernels([("shuffle", W)])[0](x.contiguous(), w, b))
+
+
+def _ssd_inputs(B, L, H, P, N, dtype, seed, G=1):
     rng = np.random.default_rng(seed)
     xh = _randn((B, L, H, P), dtype, rng)
     dt = torch.from_numpy(rng.uniform(0.01, 0.2, (B, L, H)).astype(np.float32)).cuda()
     A = -torch.from_numpy(rng.uniform(0.5, 2.0, (H,)).astype(np.float32)).cuda()
-    return xh, dt, A, _randn((B, L, 1, N), dtype, rng), _randn((B, L, 1, N), dtype, rng)
+    return xh, dt, A, _randn((B, L, G, N), dtype, rng), _randn((B, L, G, N), dtype, rng)
 
 
 def _ssd_rounded(y, state, xh, dt, A, Bm, Cm, chunk):
@@ -315,6 +337,83 @@ def test_ssd_tensor_core_takes_strided_views(card):
     _ssd_rounded(y, state, xh, dt, A, Bm, Cm, 256)
 
 
+# (B, L, H, P, N, Q, G): groups on the tensor-core instance (Zamba2-7B's
+# 112 heads of 64, state 64, two groups; 16 heads in 2 and 4 groups; a head
+# count whose groups split the CTAs' head blocks unevenly) and on the CUDA
+# cores (float32, a ragged P)
+SSD_GROUP_SHAPES = [(2, 1024, 112, 64, 64, 256, 2), (2, 512, 16, 64, 128, 256, 2),
+                    (1, 512, 16, 64, 64, 128, 4), (1, 256, 12, 64, 64, 64, 2),
+                    (2, 128, 6, 16, 16, 32, 3)]
+
+
+@pytest.mark.parametrize("shape", SSD_GROUP_SHAPES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_ssd_groups_match_plain(card, shape, dtype):
+    """G > 1 groups of B and C, head h reading group h // (H / G): y and the
+    final state against the plain version, and on the tensor cores against
+    the one that rounds what they round."""
+    B, L, H, P, N, Q, G = shape
+    args = _ssd_inputs(B, L, H, P, N, DTYPES[dtype], sum(shape), G)
+    k = tssd.build_kernel()
+    instance = tssd.select_instance(args[0], args[3], args[4], Q)
+    assert (instance == "tensor_core") == (dtype == "bfloat16" and P == 64)
+    before = dict(k.instance_launches)
+    y, state = tssd.ssd(*args, chunk=Q)
+    torch.cuda.synchronize()
+    assert k.instance_launches[instance] == before[instance] + 1
+    want_y, want_state = tssd.ref.ssd_chunked(*args, chunk=Q)
+    tol = SSD_TOL[dtype]
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(state, want_state, rtol=tol, atol=tol)
+    if instance == "tensor_core":
+        _ssd_rounded(y, state, *args, Q)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_ssd_one_group_equals_two_equal_groups(card, dtype):
+    """The group index moves addresses only: two groups holding the same B
+    and C give the bits of one group (16 heads: the same head blocks per
+    CTA either way)."""
+    xh, dt, A, Bm, Cm = _ssd_inputs(2, 512, 16, 64, 64, DTYPES[dtype], 21)
+    one = tssd.ssd(xh, dt, A, Bm, Cm, chunk=256)
+    two = tssd.ssd(xh, dt, A, Bm.expand(-1, -1, 2, -1).contiguous(),
+                   Cm.expand(-1, -1, 2, -1).contiguous(), chunk=256)
+    torch.cuda.synchronize()
+    assert torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])
+
+
+def test_ssd_groups_take_strided_views(card):
+    """x, B and C of two groups as slices of one conv output (Zamba2-7B's
+    layout: 7168 | 2 x 64 | 2 x 64), through the tensor-core instance."""
+    rng = np.random.default_rng(10)
+    B, L, H, N, G = 2, 512, 112, 64, 2
+    conv = _randn((B, L, H * 64 + 2 * G * N), torch.bfloat16, rng)
+    xh, Bm, Cm = torch.split(conv, [H * 64, G * N, G * N], dim=-1)
+    xh, Bm, Cm = xh.view(B, L, H, 64), Bm.view(B, L, G, N), Cm.view(B, L, G, N)
+    _, dt, A, _, _ = _ssd_inputs(B, L, H, 64, N, torch.bfloat16, 10)
+    assert tssd.select_instance(xh, Bm, Cm, 256) == "tensor_core"
+    y, state = tssd.ssd(xh, dt, A, Bm, Cm, chunk=256)
+    want_y, want_state = tssd.ref.ssd_chunked(xh, dt, A, Bm, Cm, chunk=256)
+    tol = SSD_TOL["bfloat16"]
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(state, want_state, rtol=tol, atol=tol)
+    _ssd_rounded(y, state, xh, dt, A, Bm, Cm, 256)
+
+
+def test_ssd_groups_take_the_plain_gradient(card):
+    """With two groups the backward is autograd of the plain version
+    (``PlainGrad``); the backward kernel, which sums dB and dC over all
+    heads, never runs."""
+    xh, dt, A, Bm, Cm = _ssd_inputs(1, 256, 8, 64, 64, torch.bfloat16, 22, 2)
+    xh.requires_grad_()
+    k = tssd.build_kernel()
+    before = k.backward.launches
+    y, _ = tssd.ssd(xh, dt, A, Bm, Cm, chunk=128)
+    y.float().sum().backward()
+    torch.cuda.synchronize()
+    assert k.backward.launches == before and xh.grad is not None
+
+
 def test_ssd_wrapper_rejects_bad_inputs(card):
     xh, dt, A, Bm, Cm = _ssd_inputs(1, 32, 2, 8, 16, torch.float32, 4)
     k = tssd.build_kernel()
@@ -375,7 +474,10 @@ FLASH_SHAPES = [(2, 64, 64, 4, 2, 16, True), (1, 100, 100, 4, 4, 8, True),
                 (2, 130, 250, 8, 2, 128, True), (1, 70, 128, 4, 1, 64, False),
                 (4, 1024, 1024, 32, 32, 64, True), (4, 1024, 1024, 16, 16, 128, True),
                 (4, 1024, 1024, 32, 4, 128, True), (4, 1024, 1024, 16, 8, 64, True),
-                (4, 1024, 1024, 16, 16, 64, False)]
+                (4, 1024, 1024, 16, 16, 64, False),
+                # Zamba2-7B's 224-wide heads: ragged Sq and Sk, and its serving shape
+                (2, 200, 200, 4, 4, 224, True), (1, 300, 177, 4, 2, 224, True),
+                (1, 130, 250, 2, 2, 224, True), (2, 1024, 1024, 32, 32, 224, True)]
 
 
 def _flash_rounded(out, q, k, v, causal=True):
@@ -415,6 +517,46 @@ def test_flash_attention_matches_plain(card, shape, dtype):
     torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
     if instance == "tensor_core":
         _flash_rounded(out, q, k, v, causal)
+
+
+@pytest.mark.parametrize("Dh", [64, 224])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_flash_attention_takes_a_scale(card, Dh, dtype):
+    """``scale`` in place of Dh^-1/2 (Zamba2's (Dh / 2)^-1/2) at ragged
+    lengths, against the plain version given the same scale; the default
+    stays Dh^-1/2."""
+    q, k, v = _qkv(2, 300, 300, 4, 2, Dh, DTYPES[dtype], Dh)
+    scale = (Dh / 2) ** -0.5
+    out = tfa.flash_attention(q, k, v, scale=scale)
+    want = tfa.ref.attention_ref(q, k, v, scale=scale)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    assert (out.float() - tfa.ref.attention_ref(q, k, v).float()).abs().max() > 10 * tol
+    if tfa.select_instance(q, k, v) == "tensor_core":
+        check_rounded("flash_attention scale", out,
+                      tfa.ref.attention_tiled(q.float(), k.float(), v.float(),
+                                              key_tile=tfa.TENSOR_CORE_KEY_TILE[Dh],
+                                              round_p=True, scale=scale))
+
+
+def test_flash_tensor_core_at_zamba2_7b_serving_shape(card):
+    """(8, 4096, 32, 224) bf16 causal with Zamba2's scale, the cell's largest
+    batch: on the tensor cores, against the plain version one row of the
+    batch at a time."""
+    q, k, v = _qkv(8, 4096, 4096, 32, 32, 224, torch.bfloat16, 224)
+    scale = 112 ** -0.5
+    kernel = tfa.build_kernel()
+    before = kernel.instance_launches["tensor_core"]
+    out = tfa.flash_attention(q, k, v, scale=scale)
+    torch.cuda.synchronize()
+    assert kernel.instance_launches["tensor_core"] == before + 1
+    for b in range(8):
+        row = slice(b, b + 1)
+        want = tfa.ref.attention_ref(q[row], k[row], v[row], scale=scale)
+        torch.testing.assert_close(out[row].float(), want.float(), rtol=6e-2, atol=6e-2)
+        check_rounded("flash_attention 224", out[row],
+                      tfa.ref.attention_tiled(q[row].float(), k[row].float(), v[row].float(),
+                                              key_tile=64, round_p=True, scale=scale))
 
 
 def test_flash_attention_takes_strided_positions(card):
