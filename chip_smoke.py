@@ -9,8 +9,8 @@ Phases, each fatal on failure:
    and 4, float32 and bfloat16), the SSD kernels (the bf16 tensor-core
    instance's three passes and the CUDA-core instance) and the
    flash-attention kernels (the bf16 tensor-core instance at Dh 16-128,
-   the CUDA-core one at Dh 8-128 in float32 and bfloat16), each source in
-   an nvcc call of its own; then ``SHFL``/``LDG``/``HGMMA``/``HMMA``
+   the CUDA-core one at Dh 8-128 in float32 and bfloat16) and the mixer's
+   tail kernel (``gated_norm``), each source in an nvcc call of its own; then ``SHFL``/``LDG``/``HGMMA``/``HMMA``
    instructions counted per kernel in the built SASS (``HGMMA`` in every
    tensor-core instance, in no CUDA-core one), and per stencil and conv1d
    kernel its registers and its SASS by class (integer, float, shared
@@ -46,8 +46,9 @@ Phases, each fatal on failure:
 5. the serving path: mamba2-1.3b at its published widths (bf16, random
    weights from a seed) serves 4 requests x 1024-token prompts x 32
    greedy tokens through ``repro_torch.launch.serve``, with launch counts
-   read around the run (48 conv1d ``shuffle`` and 48 SSD launches per
-   prefill, every SSD call on the tensor-core instance); layer 0's conv1d
+   read around the run (48 conv1d ``shuffle``, 48 SSD and 48 tail
+   (``gated_norm``) launches per prefill, every SSD call on the
+   tensor-core instance); layer 0's conv1d
    and SSD inputs are captured on that run (the conv's is required to be
    the in-projection's column view the model passes), each kernel (conv1d
    in both modes, bitwise equal) is held against its plain version on them
@@ -61,7 +62,7 @@ Phases, each fatal on failure:
    width (prefill 512 == prefill 256 + 256 decode steps);
 6. the hybrid serving path, the same way: zamba2-1.2b at its published
    widths serves the same traffic (per prefill 6 flash-attention, 38
-   conv1d ``shuffle`` and 38 SSD launches, every flash-attention and SSD
+   conv1d ``shuffle``, 38 SSD and 38 tail launches, every flash-attention and SSD
    call on its tensor-core instance); the inputs of the first
    shared-attention call and of layer 0's conv1d and SSD are captured,
    held against the plain versions and timed (flash attention beside
@@ -88,11 +89,18 @@ Phases, each fatal on failure:
 7b. Zamba2-7B-Instruct (``zamba2-7b``) at its published widths: one
    prefill of 8 x 4096 tokens, the benchmark cell's largest batch,
    through ``serve.step.generate``, launch counts zeroed just before it
-   (81 conv1d ``shuffle``, 81 SSD and 13 flash-attention launches, every
-   SSD and flash call on its tensor-core instance); the first conv1d,
-   SSD (two B/C groups) and flash call (Dh 224, scale (Dh / 2)^-1/2) of
-   that prefill held against the plain versions and timed beside their
-   bounds;
+   (81 conv1d ``shuffle``, 81 SSD, 13 flash-attention and 81 tail
+   launches, every SSD and flash call on its tensor-core instance); the
+   first conv1d, SSD (two B/C groups), flash call (Dh 224, scale
+   (Dh / 2)^-1/2) and tail (two groups) of that prefill held against the
+   plain versions and timed beside their bounds;
+7c. the mixer's tail at Mamba-2's 8 x 4096 prefill (the
+   mamba2-1.3b.prefill-pool cell's largest batch): launch counts zeroed
+   before one prefill (48 conv1d, 48 SSD, 48 tail kernels), its first tail call held against the plain tail (bit
+   for bit but in row-groups whose statistic sits at a bf16 rounding
+   tie, ``ref.compare_bf16``; the share of bit-identical elements
+   printed) and
+   timed beside its bound (8 bytes a channel) and the plain tail;
 8. the training path: one train step of the reduced olmo-1b, mamba2-1.3b,
    zamba2-1.2b, granite-moe-1b-a400m, seamless-m4t-large-v2 and
    llama-3.2-vision-90b in float32 on the card (every kernel through its
@@ -104,8 +112,9 @@ Phases, each fatal on failure:
    seed) trained through ``repro_torch.launch.train`` for 6 steps of 4 x
    1024 tokens, one after the other, with launch counts read around the
    run (per step forward + recompute: 32 flash-attention launches for
-   OLMo, 48 for Granite, 96 conv1d ``shuffle`` and 96 SSD for Mamba-2,
-   and 48 of the SSD's backward kernel, every flash and SSD call on
+   OLMo, 48 for Granite, 96 conv1d ``shuffle``, 96 SSD and 96 tail
+   (``gated_norm``) for Mamba-2, and 48 of the SSD's backward kernel,
+   every flash and SSD call on
    ``tensor_core``), every loss finite and
    every parameter's gradient at step 1 finite and not zero everywhere
    (Granite's experts that no token chose counted); the layer-0 inputs of
@@ -209,8 +218,9 @@ Phases, each fatal on failure:
 15. a ``kernels`` JSON line, and as the last line the device record.
 
 Run from the repository root:  python3 chip_smoke.py
-(``--only zamba2-7b``: phases 1, the conv1d, SSD and flash builds of 2,
-and 7b alone, then the ``kernels`` line.)
+(``--only prefill-8x4096``: phases 1, the conv1d, SSD, flash and tail
+builds of 2, and the two 8 x 4096 prefills, 7c and 7b, alone, then the
+``kernels`` line.)
 Needs one CUDA device and nvcc for sm_90a; exits non-zero without them.
 """
 
@@ -247,9 +257,16 @@ SSD_REPLACES = "src/repro/kernels/ssd/ssd.py:30"
 SSD_SOURCE = "src/repro_torch/kernels/ssd/csrc/ssd.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:33"
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+TAIL_SOURCE = "src/repro_torch/kernels/gated_norm/csrc/gated_norm.cu"
+# the mixer's tail is jnp in the JAX package, no Pallas kernel
+TAIL_REPLACES = "none: src/repro/models/mamba2.py:218-220 (jnp)"
 MAMBA, HYBRID = "mamba2-1.3b", "zamba2-1.2b"
 # phase 7b: the benchmark's zamba2-7b.prefill-pool cell's largest batch
 ZAMBA2_7B, ZAMBA2_7B_BATCH = "zamba2-7b", (8, 4096)
+# phase 7c: the mixer's tail at the mamba2-1.3b.prefill-pool cell's largest batch
+MAMBA_TAIL_BATCH = (8, 4096)
+# ``--only``: phases 7c and 7b, the two 8 x 4096 prefills, alone
+ONLY_PREFILLS = "prefill-8x4096"
 DENSE = ("olmo-1b", "yi-9b")                        # served at full width
 MOE, ENCDEC = "granite-moe-1b-a400m", "seamless-m4t-large-v2"     # the same
 # card vs CPU, reduced only: kimi-k2 (1.04 T parameters) and
@@ -752,7 +769,8 @@ def prefill_split(model, batch, arch: str, moe_fn: str = "_expert_ffn") -> dict:
     import repro_torch.models.moe as moem
 
     families = (("ssd", ("ssd_tc::", "ssd::")), ("flash_attention", ("flash_tc::", "flash::")),
-                ("conv1d", ("conv1d_",)), ("cat", ("CatArrayBatchedCopy",)),
+                ("conv1d", ("conv1d_",)), ("gated_norm", ("gated_norm::",)),
+                ("cat", ("CatArrayBatchedCopy",)),
                 ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")))
     model.prefill(batch)
     torch.cuda.synchronize()
@@ -817,6 +835,7 @@ def serve_run(report, arch: str, want: dict):
     from repro_torch.configs import get_config
     from repro_torch.kernels import conv1d as tconv
     from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import gated_norm as tgn
     from repro_torch.kernels import ssd as tssd
     from repro_torch.kernels import stencil as tstencil
     from repro_torch.launch import serve
@@ -866,7 +885,7 @@ def serve_run(report, arch: str, want: dict):
     torch.cuda.empty_cache()
     m2.causal_conv1d, m2.ssd, attn.flash_attention = capture_conv, capture_ssd, capture_flash
     serve.generate = generate_on_frames
-    for mod in (tconv, tssd, tfa, tstencil):
+    for mod in (tconv, tssd, tfa, tstencil, tgn):
         mod.reset_launch_counts()
     try:
         out = serve.main(argv)
@@ -874,7 +893,8 @@ def serve_run(report, arch: str, want: dict):
     finally:
         m2.causal_conv1d, m2.ssd, attn.flash_attention, serve.generate = real
     counts = {**tconv.launch_counts(), **tssd.launch_counts(), **tssd.instance_counts(),
-              **tfa.launch_counts(), **tfa.instance_counts(), **tstencil.launch_counts()}
+              **tfa.launch_counts(), **tfa.instance_counts(), **tstencil.launch_counts(),
+              **tgn.launch_counts()}
     if {k: counts.get(k) for k in want} != want or \
             any(n for k, n in counts.items() if k not in want):
         raise RuntimeError(f"serve {arch}: launches {counts}, expected {want}")
@@ -1167,7 +1187,7 @@ def serving_path(arch, kernels, report, entries) -> None:
     want = {}
     if cfg.family in ("ssm", "hybrid"):
         want = {"conv1d_shuffle_w4": cfg.n_layers, "ssd": cfg.n_layers,
-                "ssd/tensor_core": cfg.n_layers}
+                "ssd/tensor_core": cfg.n_layers, "gated_norm": cfg.n_layers}
     n_attn = flash_per_forward(cfg)
     if n_attn:
         want["flash_attention"] = want["flash_attention/tensor_core"] = n_attn
@@ -1245,9 +1265,10 @@ def zamba2_7b_prefill(kernels, report, entries) -> None:
     from a seed) through ``serve.step.generate``: after a warm-up, launch
     counts zeroed just before one prefill of ``ZAMBA2_7B_BATCH`` tokens
     and required to be one conv1d and one SSD (tensor cores) per mixer and
-    one flash call (tensor cores) per application, nothing else; that
-    prefill's first conv1d, SSD and flash calls captured and held against
-    the plain versions, then timed beside their bounds."""
+    one flash call (tensor cores) per application and one tail kernel per
+    mixer, nothing else; that prefill's first conv1d, SSD, flash and tail
+    calls captured and held against the plain versions, then timed beside
+    their bounds."""
     import torch
 
     import repro_torch.models.mamba2 as m2
@@ -1255,6 +1276,7 @@ def zamba2_7b_prefill(kernels, report, entries) -> None:
     from repro_torch.configs import get_config
     from repro_torch.kernels import conv1d as tconv
     from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import gated_norm as tgn
     from repro_torch.kernels import ssd as tssd
     from repro_torch.models import build_model
     from repro_torch.serve import step
@@ -1264,7 +1286,7 @@ def zamba2_7b_prefill(kernels, report, entries) -> None:
     apps = len(cfg.hybrid_layer_ids)
     want = {"conv1d_shuffle_w4": cfg.n_layers, "ssd": cfg.n_layers,
             "ssd/tensor_core": cfg.n_layers, "flash_attention": apps,
-            "flash_attention/tensor_core": apps}
+            "flash_attention/tensor_core": apps, "gated_norm": cfg.n_layers}
     rec = report.setdefault("serving", {}).setdefault(ZAMBA2_7B, {})
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     model = build_model(cfg, device="cuda", generator=gen)
@@ -1275,7 +1297,7 @@ def zamba2_7b_prefill(kernels, report, entries) -> None:
     print(f"[zamba2-7b] warm-up: a {B} x 512 prefill after start-up took "
           f"{1e3 * (time.perf_counter() - t0):.1f} ms")
     captured = {}
-    real = (m2.causal_conv1d, m2.ssd, z2.flash_attention)
+    real = (m2.causal_conv1d, m2.ssd, z2.flash_attention, m2.gated_norm_tail)
 
     def capture_conv(x, w, b, mode="shuffle", activation=True):
         captured.setdefault("conv", (x, w.detach(), b.detach()))
@@ -1289,16 +1311,21 @@ def zamba2_7b_prefill(kernels, report, entries) -> None:
         captured.setdefault("flash", (q, k, v, causal, scale))
         return real[2](q, k, v, causal=causal, scale=scale)
 
-    m2.causal_conv1d, m2.ssd, z2.flash_attention = capture_conv, capture_ssd, capture_flash
-    for mod in (tconv, tssd, tfa):
+    def capture_tail(*args):
+        captured.setdefault("tail", args)
+        return real[3](*args)
+
+    m2.causal_conv1d, m2.ssd, z2.flash_attention, m2.gated_norm_tail = (
+        capture_conv, capture_ssd, capture_flash, capture_tail)
+    for mod in (tconv, tssd, tfa, tgn):
         mod.reset_launch_counts()
     times = {}
     try:
         out = step.generate(model, {"tokens": tokens}, 1, times=times)
     finally:
-        m2.causal_conv1d, m2.ssd, z2.flash_attention = real
+        m2.causal_conv1d, m2.ssd, z2.flash_attention, m2.gated_norm_tail = real
     counts = {**tconv.launch_counts(), **tssd.launch_counts(), **tssd.instance_counts(),
-              **tfa.launch_counts(), **tfa.instance_counts()}
+              **tfa.launch_counts(), **tfa.instance_counts(), **tgn.launch_counts()}
     launches = {k: n for k, n in counts.items() if n}
     if launches != want:
         raise RuntimeError(f"zamba2-7b prefill: launches {launches}, expected {want}")
@@ -1319,6 +1346,106 @@ def zamba2_7b_prefill(kernels, report, entries) -> None:
     layer0_ssd(kernels["ssd"], captured.pop("ssd"), launches, rec, entries,
                f"ssd[{ZAMBA2_7B}]", phase="zamba2-7b")
     zamba2_7b_flash(kernels["flash"], captured.pop("flash"), launches, rec, entries)
+    layer0_tail(captured.pop("tail"), launches, rec, entries, f"gated_norm[{ZAMBA2_7B}]",
+                phase="zamba2-7b")
+    torch.cuda.empty_cache()
+
+
+def layer0_tail(args, launches, report, entries, name, phase) -> None:
+    """The mixer's tail kernel on the first mixer's operands of a prefill,
+    as the mixer passes them (xh and z column ranges of the conv output and
+    the in-projection): against the plain tail on the card (bf16 ulps, the
+    share of bit-identical elements), time beside its bound (y, xh, z read
+    and the output written once, the scale and D) and the plain tail."""
+    import torch
+
+    from repro_torch.kernels import gated_norm as tgn
+
+    y, xh, z, d_skip, scale, groups, eps, dtype = args
+    B, L, H, P = xh.shape
+    C = H * P
+    kernel = tgn.build_kernel()
+    with torch.inference_mode():             # the captured operands are inference tensors
+        got = kernel(*args)
+        c = tgn.ref.compare_bf16(got, y, xh, z, d_skip, scale, groups, eps)
+    if c["differ_off_tie"] or c["sign_flips"] or c["max_ulps"] > tgn.ref.TIE_MOVE_ULPS:
+        raise RuntimeError(f"gated_norm ({name}) against the plain tail: {c}")
+    del got
+    item = xh.element_size()
+    nbytes = 4 * B * L * C * item + C * item + H * 4
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    with torch.inference_mode():
+        times = cold_ms({"kernel": lambda: kernel(*args),
+                         "plain": lambda: tgn.ref.gated_norm_tail(*args)}, 10)
+    ms, plain_ms = times["kernel"], times["plain"]
+    report["tail_layer0"] = {"shape": (B, L, C, groups), "dtype": str(dtype),
+                             "strides": {"xh": xh.stride(), "z": z.stride()},
+                             "bytes": nbytes, "bound_ms": bound_ms, "ms": ms,
+                             "plain_ms": plain_ms, "against_plain": c}
+    entries.append({"name": name, "route": "cuda", "source": TAIL_SOURCE,
+                    "replaces": TAIL_REPLACES, "launches": launches["gated_norm"],
+                    "max_ulps": c["max_ulps"], "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None})
+    print(f"[{phase}-kernel] gated_norm {(B, L, C)} G {groups} {dtype} (xh row "
+          f"{xh.stride(1)}, z row {z.stride(1)} elements) {ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"(bytes, {nbytes / 1e9:.3f} GB; {100 * bound_ms / ms:.1f} %); plain "
+          f"{plain_ms:.3f} ms; {launches['gated_norm']} launches per prefill; "
+          f"bit-identical {100 * c['bit_identical']:.4f} %, max {c['max_ulps']} ulp "
+          f"({c['differ']} of {c['groups']} row-groups differ, {c['near_tie']} near a tie)")
+
+
+def mamba2_tail_prefill(report, entries) -> None:
+    """Phase 7c.  ``mamba2-1.3b`` at its published widths through
+    ``serve.step.generate``: after a warm-up, launch counts zeroed just
+    before one prefill of ``MAMBA_TAIL_BATCH`` tokens (the
+    mamba2-1.3b.prefill-pool cell's largest batch) and required to be one
+    conv1d, one SSD and one tail kernel per mixer, nothing else; that
+    prefill's first tail call held against the plain tail and timed."""
+    import torch
+
+    import repro_torch.models.mamba2 as m2
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import conv1d as tconv
+    from repro_torch.kernels import gated_norm as tgn
+    from repro_torch.kernels import ssd as tssd
+    from repro_torch.models import build_model
+    from repro_torch.serve import step
+
+    cfg = get_config(MAMBA)
+    B, L = MAMBA_TAIL_BATCH
+    want = {"conv1d_shuffle_w4": cfg.n_layers, "ssd": cfg.n_layers,
+            "ssd/tensor_core": cfg.n_layers, "gated_norm": cfg.n_layers}
+    rec = report.setdefault("serving", {}).setdefault(f"{MAMBA} {B}x{L}", {})
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    model = build_model(cfg, device="cuda", generator=gen)
+    tokens = torch.randint(0, cfg.vocab, (B, L), generator=gen, device="cuda")
+    step.generate(model, {"tokens": tokens[:, :512]}, 1)      # cuBLAS and kernel modules
+    captured, real = {}, m2.gated_norm_tail
+
+    def capture_tail(*args):
+        captured.setdefault("tail", args)
+        return real(*args)
+
+    m2.gated_norm_tail = capture_tail
+    for mod in (tconv, tssd, tgn):
+        mod.reset_launch_counts()
+    times = {}
+    try:
+        step.generate(model, {"tokens": tokens}, 1, times=times)
+    finally:
+        m2.gated_norm_tail = real
+    counts = {**tconv.launch_counts(), **tssd.launch_counts(), **tssd.instance_counts(),
+              **tgn.launch_counts()}
+    launches = {k: n for k, n in counts.items() if n}
+    if launches != want:
+        raise RuntimeError(f"{MAMBA} {B} x {L} prefill: launches {launches}, expected {want}")
+    rec.update({"prefill_ms": 1e3 * times["prefill_s"], "launches": launches})
+    print(f"[mamba2-tail] prefill {B} x {L}: {1e3 * times['prefill_s']:.1f} ms; launches "
+          + " ".join(f"{k} {n}" for k, n in launches.items()))
+    del model, tokens
+    torch.cuda.empty_cache()
+    layer0_tail(captured.pop("tail"), launches, rec, entries, "gated_norm",
+                phase="mamba2-tail")
     torch.cuda.empty_cache()
 
 
@@ -1331,6 +1458,7 @@ def reduced_train_card_vs_cpu(report, arch: str) -> None:
 
     from repro_torch.kernels import conv1d as tconv
     from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import gated_norm as tgn
     from repro_torch.kernels import ssd as tssd
     from repro_torch.train import OptConfig, init_opt_state, make_train_step
     from repro_torch.train.optim import first_step_bound
@@ -1342,21 +1470,23 @@ def reduced_train_card_vs_cpu(report, arch: str) -> None:
              **stub_batch(rcfg, 4, rng, "cpu")}
     grads, counts = {}, {}
     for side, m in (("cpu", cpu), ("card", gpu)):
-        for mod in (tconv, tssd, tfa):
+        for mod in (tconv, tssd, tfa, tgn):
             mod.reset_launch_counts()
         params = dict(m.named_parameters())
         loss, _ = m.loss(batch)
         grads[side] = {k: g.detach().cpu() for k, g in
                        zip(params, torch.autograd.grad(loss, list(params.values())))}
         counts[side] = {k: n for k, n in {**tconv.launch_counts(), **tssd.launch_counts(),
-                                          **tfa.launch_counts()}.items() if n}
+                                          **tfa.launch_counts(),
+                                          **tgn.launch_counts()}.items() if n}
     gerr = max(float((grads["card"][k] - g).abs().max() / g.abs().max())
                for k, g in grads["cpu"].items())
     if gerr > TRAIN_TOL:
         raise RuntimeError(f"reduced {arch}: gradients card vs CPU differ by {gerr:.2e} "
                            f"of their leaves' largest")
     if rcfg.family != "hybrid":     # forward + recompute per block
-        want = ({"conv1d_shuffle_w4": 2 * rcfg.n_layers, "ssd": 2 * rcfg.n_layers}
+        want = ({"conv1d_shuffle_w4": 2 * rcfg.n_layers, "ssd": 2 * rcfg.n_layers,
+                 "gated_norm": 2 * rcfg.n_layers}
                 if rcfg.family == "ssm" else {"flash_attention": 2 * flash_per_forward(rcfg)})
         if counts["card"] != want:
             raise RuntimeError(f"reduced {arch}: launches per loss + gradient "
@@ -1490,9 +1620,10 @@ def train_split(model, step, state, batch, arch: str, moe: bool = False):
 
     from repro_torch.kernels import conv1d as tconv
     from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import gated_norm as tgn
     from repro_torch.kernels import ssd as tssd
 
-    port = ("ssd_tc::", "ssd::", "ssd_bwd::", "flash_tc::", "flash::", "conv1d_")
+    port = ("ssd_tc::", "ssd::", "ssd_bwd::", "flash_tc::", "flash::", "conv1d_", "gated_norm::")
     gemm = ("gemm", "xmma", "cutlass", "nvjet", "sm90_")
     nccl = "nccl"                   # the mesh path's collectives (phase 9)
     torch.cuda.synchronize()
@@ -1508,7 +1639,7 @@ def train_split(model, step, state, batch, arch: str, moe: bool = False):
 
     def traced_step():
         nonlocal state
-        for mod in (tconv, tssd, tfa):
+        for mod in (tconv, tssd, tfa, tgn):
             mod.reset_launch_counts()
         state, _ = step(state, batch)
 
@@ -1520,7 +1651,7 @@ def train_split(model, step, state, batch, arch: str, moe: bool = False):
         moem.apply_moe_sharded = real_moe
     launches = {k: n for k, n in {**tconv.launch_counts(), **tssd.launch_counts(),
                                   **tssd.instance_counts(), **tfa.launch_counts(),
-                                  **tfa.instance_counts()}.items() if n}
+                                  **tfa.instance_counts(), **tgn.launch_counts()}.items() if n}
     ranges = {"repro::autograd.backward": "plain_backward", "smoke::adamw_update": "optimizer",
               **({"smoke::moe": "moe"} if moe else {})}
     spans, kernels = [], []
@@ -1661,6 +1792,7 @@ def training_run(report, arch: str, kernels, entries) -> None:
     from repro_torch.data import DataConfig, TokenPipeline
     from repro_torch.kernels import conv1d as tconv
     from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import gated_norm as tgn
     from repro_torch.kernels import ssd as tssd
     from repro_torch.kernels import stencil as tstencil
     from repro_torch.launch import train as ttrain
@@ -1670,7 +1802,7 @@ def training_run(report, arch: str, kernels, entries) -> None:
     cfg = get_config(arch)
     L, n_attn = cfg.n_layers, flash_per_forward(cfg)
     per_step = ({"conv1d_shuffle_w4": 2 * L, "ssd": 2 * L, "ssd/tensor_core": 2 * L,
-                 "ssd_bwd": L, "ssd_bwd/tensor_core": L}
+                 "ssd_bwd": L, "ssd_bwd/tensor_core": L, "gated_norm": 2 * L}
                 if cfg.family == "ssm" else
                 {"flash_attention": 2 * n_attn, "flash_attention/tensor_core": 2 * n_attn})
     rec = report.setdefault("training", {}).setdefault(arch, {})
@@ -1706,13 +1838,14 @@ def training_run(report, arch: str, kernels, entries) -> None:
             "--lr", str(TRAIN["lr"]), "--log-every", "1"]
     m2.causal_conv1d, m2.ssd, attn.flash_attention = capture_conv, capture_ssd, capture_flash
     tstep.adamw_update = adamw
-    for mod in (tconv, tssd, tfa, tstencil):
+    for mod in (tconv, tssd, tfa, tstencil, tgn):
         mod.reset_launch_counts()
     try:
         out = ttrain.main(argv)
         torch.cuda.synchronize()
         counts = {**tconv.launch_counts(), **tssd.launch_counts(), **tssd.instance_counts(),
-                  **tfa.launch_counts(), **tfa.instance_counts(), **tstencil.launch_counts()}
+                  **tfa.launch_counts(), **tfa.instance_counts(), **tstencil.launch_counts(),
+                  **tgn.launch_counts()}
         want = {k: TRAIN["steps"] * n for k, n in per_step.items()}
         if {k: counts.get(k) for k in want} != want or \
                 any(n for k, n in counts.items() if k not in want):
@@ -2899,6 +3032,7 @@ def main() -> int:
     from repro_torch.core.frontend.kernelgen import get_bench
     from repro_torch.kernels import conv1d as tconv
     from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import gated_norm as tgn
     from repro_torch.kernels import ssd as tssd
     from repro_torch.kernels.stencil import (
         MARCH, MODES, build_kernels, launch_counts, reference,
@@ -2911,8 +3045,8 @@ def main() -> int:
     t_start = time.perf_counter()
     report = {"sass": {}, "medium": {}, "paper": {}}
     only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv else None
-    if only not in (None, ZAMBA2_7B):
-        raise ValueError(f"--only {only!r}: the one phase run alone is {ZAMBA2_7B!r}")
+    if only not in (None, ONLY_PREFILLS):
+        raise ValueError(f"--only {only!r}: the phases run alone are {ONLY_PREFILLS!r}")
 
     # -- 1. toolchain -------------------------------------------------------
     card = card_line()
@@ -2923,11 +3057,16 @@ def main() -> int:
     if cap != (9, 0):
         raise RuntimeError(f"the kernels are built for sm_90a; device is sm_{cap[0]}{cap[1]}")
 
-    if only == ZAMBA2_7B:
+    if only is not None:
         entries = []
         kernels = {"conv": dict(zip([(m, 4) for m in tconv.MODES],
                                     tconv.build_kernels([(m, 4) for m in tconv.MODES]))),
                    "ssd": tssd.build_kernel(), "flash": tfa.build_kernel()}
+        tail_lib = tgn.build_kernel().library
+        print(f"[build] gated_norm: one nvcc call: {tail_lib.seconds:.1f} s; "
+              + ", ".join(f"{k.split('(')[0]} regs {v['regs']} spill {v['local']}"
+                          for k, v in register_counts(str(tail_lib.path)).items()))
+        mamba2_tail_prefill(report, entries)
         zamba2_7b_prefill(kernels, report, entries)
         print(f"[done] {time.perf_counter() - t_start:.1f} s")
         print(card)
@@ -2941,6 +3080,7 @@ def main() -> int:
         conv_job = pool.submit(tconv.build_kernels, conv_items)
         ssd_job = pool.submit(tssd.build_kernel)
         fa_job = pool.submit(tfa.build_kernel)
+        tail_job = pool.submit(tgn.build_kernel)
         benches = {n: get_bench(n) for n in STENCIL_BENCHES}
         items = [(b.program, m, b.max_delta) for b in benches.values() for m in MODES]
         kernels = dict(zip([(n, m) for n in benches for m in MODES],
@@ -2948,6 +3088,7 @@ def main() -> int:
         conv = dict(zip(conv_items, conv_job.result()))
         ssd_kernel = ssd_job.result()
         fa_kernel = fa_job.result()
+        tail_job.result()
     build_s = time.perf_counter() - t0
     libs = {str(k.library.path): k.library for k in kernels.values()}
     print(f"[build] {len(kernels)} kernels, {len(libs)} nvcc calls (one per bench) "
@@ -3183,6 +3324,10 @@ def main() -> int:
     # -- 7b. Zamba2-7B-Instruct at its published widths ------------------------
     torch.cuda.empty_cache()
     zamba2_7b_prefill(serving_kernels, report, entries)
+
+    # -- 7c. the mixer's tail at Mamba-2's 8 x 4096 prefill ---------------------
+    torch.cuda.empty_cache()
+    mamba2_tail_prefill(report, entries)
 
     # -- 8. training: reduced card vs CPU, the loss falling, a checkpoint
     #       round trip; olmo-1b, mamba2-1.3b and granite at full width -------

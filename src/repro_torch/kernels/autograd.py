@@ -13,7 +13,8 @@ call.  One kernel has a backward of its own instead: the SSD's bf16
 tensor-core instance, whose autograd Function
 (:class:`~repro_torch.kernels.ssd.ops.SSDFunction`) launches the SSD's
 backward kernel, counted apart (``ssd_bwd``); every other SSD call, and
-conv1d and flash attention, take :class:`PlainGrad`.  Either backward runs
+conv1d, flash attention and the Mamba-2 mixer's tail (``gated_norm``),
+take :class:`PlainGrad`.  Either backward runs
 in an ``autograd.backward`` span (:mod:`repro_torch.tracing`) that names
 the kernel.
 
@@ -70,7 +71,7 @@ class PlainGrad(torch.autograd.Function):
 def with_plain_grad(name: str, kernel: Callable, plain: Callable, *inputs: torch.Tensor):
     """``kernel(*inputs)``; through :class:`PlainGrad` when grad mode is on
     and an input requires a gradient.  ``name`` names the kernel
-    (``conv1d``, ``ssd``, ``flash``)."""
+    (``conv1d``, ``ssd``, ``flash``, ``gated_norm``)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
         return PlainGrad.apply(name, kernel, plain, *inputs)
     return kernel(*inputs)

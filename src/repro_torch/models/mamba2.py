@@ -14,7 +14,10 @@ plain PyTorch, as it is plain jnp in the reference.  The projections are
 ``torch.matmul``.  On the card both kernels are differentiable through
 their plain versions (``kernels/autograd.py``), so a loss carries its
 gradient through the conv and the scan to the in-projection, ``conv_w``,
-``a_log`` and ``dt_bias``.
+``a_log`` and ``dt_bias``.  The mixer's tail (the D skip, the SiLU gate
+and the grouped RMSNorm) is ``kernels.gated_norm.gated_norm_tail``: one
+CUDA kernel on the card, differentiable through its plain version like
+the other two; on the CPU the plain expression.
 """
 
 from __future__ import annotations
@@ -27,9 +30,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from repro_torch.kernels.conv1d import causal_conv1d
+from repro_torch.kernels.gated_norm import gated_norm_tail
+from repro_torch.kernels.gated_norm.ref import gated_norm
 from repro_torch.kernels.ssd import ssd
 from repro_torch.tracing import span
-from .common import Params, dense_init, rand, rmsnorm
+from .common import Params, dense_init, rand
 
 
 class SSMConfig(NamedTuple):
@@ -99,19 +104,6 @@ def conv_state_after(conv_in: torch.Tensor, W: int) -> torch.Tensor:
     return F.pad(conv_in, (0, 0, W - 1 - L, 0))
 
 
-def gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
-               groups: int, eps: float) -> torch.Tensor:
-    """RMSNorm(y * silu(z)) with its statistics taken over each of
-    ``groups`` equal parts of the last axis (Zamba2's ``Zamba2RMSNormGated``
-    normalises each B/C group's channels on its own); one group is the
-    RMSNorm over all of d_inner."""
-    h = y * F.silu(z)
-    if groups == 1:
-        return rmsnorm(h, scale, eps)
-    h = rmsnorm(h.unflatten(-1, (groups, -1)), None, eps).flatten(-2)
-    return h * scale.to(h.dtype)
-
-
 def _split_proj(params: Params, x: torch.Tensor, cfg: SSMConfig):
     """(z, conv input, dt): views of the in-projection's columns; the conv
     input is xin|B|C, one contiguous column range."""
@@ -153,9 +145,9 @@ class Mamba2(nn.Module):
         Cm = Cc.reshape(Bsz, L, ng, ns)
         with span("mamba2.ssd", B=Bsz, L=L, H=H, P=P, N=ns, chunk=chunk, dtype=xh.dtype):
             y, s_final = ssd(xh, dt, A, Bm, Cm, chunk)
-        y = y + p["d_skip"][None, None, :, None] * xh
-        y = y.reshape(Bsz, L, cfg.d_inner).to(x.dtype)
-        y = gated_norm(y, z, p["norm_scale"], ng, cfg.norm_eps)
+        with span("mamba2.gated_norm", B=Bsz, L=L, C=cfg.d_inner, G=ng, dtype=x.dtype):
+            y = gated_norm_tail(y, xh, z, p["d_skip"], p["norm_scale"], ng,
+                                cfg.norm_eps, x.dtype)
         with span("mamba2.out_proj", M=Bsz * L, K=y.shape[2], N=D, dtype=y.dtype):
             out = torch.matmul(y, p["w_out"]).to(x.dtype)
         if return_state:

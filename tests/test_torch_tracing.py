@@ -18,6 +18,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import autograd as kag
 from repro_torch.kernels.conv1d import ops as conv_ops
 from repro_torch.kernels.conv1d import ref as conv_ref
+from repro_torch.kernels.gated_norm import ref as gn_ref
 from repro_torch.kernels.ssd import ref as ssd_ref
 from repro_torch.models import build_model
 from repro_torch.models import mamba2 as m2
@@ -29,7 +30,8 @@ from repro_torch.train.step import make_train_step
 SMALL = dict(n_layers=3, d_model=64, vocab=256, dtype="float32", ssm_chunk=16,
              ssm_state=16, ssm_head_dim=16)
 B, L = 2, 32
-MIXER = ["mamba2.in_proj", "mamba2.conv1d", "mamba2.ssd", "mamba2.out_proj"]
+MIXER = ["mamba2.in_proj", "mamba2.conv1d", "mamba2.ssd", "mamba2.gated_norm",
+         "mamba2.out_proj"]
 
 
 def _model(remat: str, device: str = "cpu", **widths):
@@ -68,7 +70,7 @@ def _names(spans):
 
 @pytest.fixture
 def plain_grad(monkeypatch):
-    """The mixer's two kernel calls as the card makes them, through
+    """The mixer's three kernel calls as the card makes them, through
     ``PlainGrad``, with each plain version standing in for its kernel."""
     def conv(x, w, b):
         return kag.with_plain_grad("conv1d", conv_ref.causal_conv1d, conv_ref.causal_conv1d,
@@ -78,8 +80,13 @@ def plain_grad(monkeypatch):
         plain = lambda *a: ssd_ref.ssd_chunked(*a, chunk)      # noqa: E731
         return kag.with_plain_grad("ssd", plain, plain, xh, dt, A, Bm, Cm)
 
+    def tail(y, xh, z, d_skip, scale, groups, eps, dtype):
+        plain = lambda *a: gn_ref.gated_norm_tail(*a, groups, eps, dtype)  # noqa: E731
+        return kag.with_plain_grad("gated_norm", plain, plain, y, xh, z, d_skip, scale)
+
     monkeypatch.setattr(m2, "causal_conv1d", conv)
     monkeypatch.setattr(m2, "ssd", ssd)
+    monkeypatch.setattr(m2, "gated_norm_tail", tail)
 
 
 def test_generate_records_the_span_tree():
@@ -94,10 +101,11 @@ def test_generate_records_the_span_tree():
     assert [b.attrs for b in blocks] == [{"layer": i} for i in (0, 1, 2, 0, 1, 2)]
     for blk, mixer in zip(blocks, [MIXER] * 3 + [[]] * 3):
         assert _names(_children(spans, blk)) == mixer
-    in_proj, conv, ssd, out_proj = _children(spans, blocks[0])
+    in_proj, conv, ssd, tail, out_proj = _children(spans, blocks[0])
     assert in_proj.attrs == dict(M=B * L, K=64, N=2 * 128 + 2 * 16 + 8, dtype="float32")
     assert conv.attrs == dict(B=B, L=L, C=128 + 2 * 16, W=4, dtype="float32")
     assert ssd.attrs == dict(B=B, L=L, H=8, P=16, N=16, chunk=16, dtype="float32")
+    assert tail.attrs == dict(B=B, L=L, C=128, G=1, dtype="float32")
     assert out_proj.attrs == dict(M=B * L, K=128, N=64, dtype="float32")
     by_id = {s.id: s for s in spans}
     for s in spans:
@@ -128,7 +136,8 @@ def test_train_step_with_block_remat_records_the_backward(plain_grad):
         assert set(_names(inner)) <= set(MIXER) and all(s.backward for s in inner)
         assert by_id[b.parent].name in ("train.step", "autograd.backward")
     backward = [s for s in spans if s.name == "autograd.backward"]
-    assert collections.Counter(s.attrs["kernel"] for s in backward) == {"conv1d": 3, "ssd": 3}
+    assert collections.Counter(s.attrs["kernel"] for s in backward) == \
+        {"conv1d": 3, "ssd": 3, "gated_norm": 3}
     assert all(s.backward and st.start_ns <= s.start_ns <= s.end_ns <= st.end_ns
                for s in backward)
 
@@ -244,9 +253,13 @@ def test_spans_leave_device_ranges_on_the_card(card):
     """On the card each span that launches work leaves a device-side
     ``repro::`` range over its kernels in the profiler's trace: one a
     block, mixer layer and plain backward, each mixer layer's inside a
-    block's, and the backward spans name their kernels.  The remat
+    block's, and the backward spans name their kernels.  A range covers
+    the kernels its own span launches, not its children's.  The remat
     recompute stops once the out-projection's inputs are saved, before
-    its kernel, so its ``mamba2.out_proj`` spans leave none."""
+    its kernel, so its ``mamba2.out_proj`` spans leave none, and a
+    recomputed block launches nothing of its own after the SSD's inputs:
+    its mixer layers' ranges lie between the block's start and the next
+    backward range."""
     from torch.autograd import DeviceType
 
     model = _model("block", "cuda", dtype="bfloat16", d_model=256, ssm_head_dim=64,
@@ -262,9 +275,17 @@ def test_spans_leave_device_ranges_on_the_card(card):
                                    if not (s.backward and s.name == "mamba2.out_proj"))
     for name in ("model.block", *MIXER, "autograd.backward"):
         assert len(ranges[name]) == launched[name] > 0, name
+    blocks = sorted(ranges["model.block"])
+    n_forward = sum(not s.backward for s in spans if s.name == "model.block")
+    forward_end = blocks[n_forward - 1][1]
+    backward_starts = sorted(a for a, _ in ranges["autograd.backward"])
     for name in MIXER:
         for a, b in ranges[name]:
-            assert any(s <= a <= b <= e for s, e in ranges["model.block"]), name
+            if a < forward_end:
+                assert any(s <= a <= b <= e for s, e in blocks[:n_forward]), name
+            else:
+                start = max(s for s, _ in blocks[n_forward:] if s <= a)
+                assert b <= min(t for t in backward_starts if t > start), name
     kernels = collections.Counter(s.attrs["kernel"] for s in spans
                                   if s.name == "autograd.backward")
-    assert kernels == {"conv1d": 3, "ssd": 3}
+    assert kernels == {"conv1d": 3, "ssd": 3, "gated_norm": 3}
