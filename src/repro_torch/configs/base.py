@@ -44,7 +44,7 @@ class ModelConfig:
     adapter_rank: int = 0          # rank of each application's MLP adapter
     attn_width: int = 0            # the shared attention's width (its input is
                                    # [hidden, embedding], 2 x d_model wide)
-    norm_eps: float = 1e-6         # RMSNorm epsilon of the zamba2 family
+    norm_eps: float = 1e-6         # every RMSNorm's epsilon
     # --- VLM ---
     cross_every: int = 0           # a cross-attn layer every N layers
     n_media_tokens: int = 1600     # stub vision tokens (frontend is a stub)

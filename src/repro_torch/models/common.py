@@ -118,9 +118,10 @@ def init_norm(d: int, kind: str, dtype: torch.dtype,
 
 
 def apply_norm(params: Mapping[str, torch.Tensor], x: torch.Tensor, kind: str,
-               impl: str = "lean") -> torch.Tensor:
+               impl: str = "lean", eps: float = 1e-6) -> torch.Tensor:
+    """``eps`` is the RMSNorm's; a LayerNorm keeps 1e-5."""
     if kind == "rmsnorm":
-        return rmsnorm(x, params["scale"], impl=impl)
+        return rmsnorm(x, params["scale"], eps, impl)
     if kind == "layernorm":
         return layernorm(x, params["scale"], params["bias"], impl=impl)
     if kind == "nonparametric":

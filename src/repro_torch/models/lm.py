@@ -6,9 +6,17 @@ with the parameters inside the module instead of a pytree argument:
 
   hidden(batch)                    -> (final-norm hidden states, aux)
   loss(batch)                      -> (scalar, {"ce", "aux"})
-  init_cache(batch_size, seq_len)  -> cache dict
+  init_cache(batch_size, seq_len)  -> cache dict of zeros
   prefill(batch, max_len)          -> (last logits, cache)
   decode_step(tokens, cache)       -> (logits, cache)
+
+``decode_step`` writes the cache in place (k/v at ``pos``, a Mamba-2
+block's states at its layer's slot) and returns the tensors it was
+given, with ``pos + 1`` a new tensor.  The SSM models' ``prefill``
+(:class:`SSMModel`, :class:`HybridModel`, ``Zamba2Model``) allocates its
+cache once, in ``init_cache``'s layout for max(S, ``max_len``) positions,
+and writes it in place, the attention k/v zeros past S; the other
+families stack their k/v and pad them with zeros.
 
 The reference scans over stacked layers; here a Python loop runs a flat
 ``ModuleList`` of blocks.  Every parameter is trainable; serving runs
@@ -175,6 +183,12 @@ def _attn_cfg(cfg: ModelConfig, causal: bool = True) -> attn.AttnConfig:
         q_block=cfg.q_block, kv_block=cfg.kv_block)
 
 
+def _norm(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``cfg``'s norm of x with the parameters p; an RMSNorm takes
+    ``cfg.norm_eps``."""
+    return apply_norm(p, x, cfg.norm, impl=cfg.norm_impl, eps=cfg.norm_eps)
+
+
 # ---------------------------------------------------------------------------
 # chunked cross-entropy
 # ---------------------------------------------------------------------------
@@ -218,13 +232,50 @@ def chunked_ce_loss(table: torch.Tensor, hidden: torch.Tensor,
 
 
 class SSMBlock(nn.Module):
-    """Pre-norm residual block around one Mamba-2 mixer."""
+    """The pre-norm residual block around one Mamba-2 mixer, for every
+    model that has one: x + mixer(norm(x + t)), where t is an added term
+    (Zamba2's shared-block output) or None, and the residual adds onto x.
+    ``forward(x, t, states)`` serves three uses:
+
+    * x (B, S, D), no ``states``: the full sequence (training, ``hidden``);
+    * x (B, S, D), ``states`` a cache's (conv, ssm) slots of this layer,
+      (B, W - 1, C) and (B, H, N, P): prefill, which writes the mixer's
+      final states into them;
+    * x (B, D), the same slots: one decode token, which reads the states
+      and writes the new ones into them in place.
+    """
 
     def __init__(self, cfg: ModelConfig, scfg: m2.SSMConfig,
                  gen: torch.Generator, dtype: torch.dtype):
         super().__init__()
+        self.cfg = cfg
         self.ln = nn.ParameterDict(init_norm(cfg.d_model, cfg.norm, dtype, gen.device))
         self.mamba = m2.Mamba2(scfg, gen, dtype)
+
+    def forward(self, x: torch.Tensor, t: Optional[torch.Tensor] = None,
+                states: Optional[tuple] = None) -> torch.Tensor:
+        h = _norm(self.ln, x if t is None else x + t, self.cfg)
+        if states is None:
+            return x + self.mamba(h)
+        if x.dim() == 2:
+            y, new = self.mamba.decode_step(h, states)
+        else:
+            y, new = self.mamba(h, return_state=True)
+        for slot, state in zip(states, new):
+            slot.copy_(state)
+        return x + y
+
+
+def _slots(cache: Optional[Dict[str, Any]], i: int) -> Optional[tuple]:
+    """Layer i's (conv, ssm) state slots in ``cache``; None without one."""
+    return None if cache is None else (cache["conv"][i], cache["ssm"][i])
+
+
+def _fill_kv(cache: Dict[str, Any], j: int, kv: tuple) -> None:
+    """Prefill's k, v (B, S, KV, Dh) into the attention caches' slot j,
+    positions [0, S)."""
+    for key, part in zip(("attn_k", "attn_v"), kv):
+        cache[key][j, :, :part.shape[1]] = part
 
 
 # ---------------------------------------------------------------------------
@@ -284,10 +335,10 @@ def apply_tblock(p: TBlock, x: torch.Tensor, cfg: ModelConfig, mesh=None,
     0 for the MLP.  On a mesh x is this rank's batch shard of
     ``global_batch`` rows and p's parameters are whole (gathered)."""
     x = constrain_batch(x, mesh, global_batch)
-    h = apply_norm(p.ln1, x, cfg.norm, impl=cfg.norm_impl)
+    h = _norm(p.ln1, x, cfg)
     x = x + attn.self_attention(p.attn, h, _attn_cfg(cfg), impl=cfg.attn_impl, mesh=mesh)
     x = constrain_batch(x, mesh, global_batch)
-    h = apply_norm(p.ln2, x, cfg.norm, impl=cfg.norm_impl)
+    h = _norm(p.ln2, x, cfg)
     y, aux = _apply_ffn(p, h, cfg, mesh)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -300,11 +351,11 @@ def prefill_tblock(p: TBlock, x: torch.Tensor, cfg: ModelConfig, mesh=None):
     sharded MoE's)."""
     with _gathered(mesh, p, keep=_sharded_moe(p, cfg, mesh)):
         x = constrain_batch(x, mesh)
-        h = apply_norm(p.ln1, x, cfg.norm, impl=cfg.norm_impl)
+        h = _norm(p.ln1, x, cfg)
         a, kv = attn.prefill_attention(p.attn, h, _attn_cfg(cfg), impl=cfg.attn_impl,
                                        mesh=mesh)
         x = x + a
-        h = apply_norm(p.ln2, x, cfg.norm, impl=cfg.norm_impl)
+        h = _norm(p.ln2, x, cfg)
         return x + _apply_ffn(p, h, cfg, mesh)[0], kv
 
 
@@ -312,10 +363,10 @@ def decode_tblock(p: TBlock, x: torch.Tensor, kv_cache, pos: torch.Tensor,
                   cfg: ModelConfig, mesh=None):
     """x: (B, 1, D); the k/v cache is written at ``pos`` in place."""
     with _gathered(mesh, p, keep=_sharded_moe(p, cfg, mesh)):
-        h = apply_norm(p.ln1, x, cfg.norm, impl=cfg.norm_impl)
+        h = _norm(p.ln1, x, cfg)
         a, kv_cache = attn.decode_attention(p.attn, h, kv_cache, pos, _attn_cfg(cfg))
         x = x + a
-        h = apply_norm(p.ln2, x, cfg.norm, impl=cfg.norm_impl)
+        h = _norm(p.ln2, x, cfg)
         return x + _apply_ffn(p, h, cfg, mesh)[0], kv_cache
 
 
@@ -362,8 +413,7 @@ class Model(nn.Module):
 
     def _final(self, x: torch.Tensor) -> torch.Tensor:
         """(B, D) hidden after the last block -> (B, vocab) logits."""
-        cfg = self.cfg
-        return self._logits(apply_norm(self.ln_f, x, cfg.norm, impl=cfg.norm_impl))
+        return self._logits(_norm(self.ln_f, x, self.cfg))
 
     # -- full-sequence forward ----------------------------------------------
     def _remat(self, fn, *args):
@@ -418,7 +468,7 @@ class Model(nn.Module):
         with _gathered(self.mesh, self.embed, self.ln_f):
             x = self.embed["table"][batch["tokens"].to(self.device)]
             x, aux = self._backbone(x, batch, gb)
-            return apply_norm(self.ln_f, x, cfg.norm, impl=cfg.norm_impl), aux
+            return _norm(self.ln_f, x, cfg), aux
 
     def hidden(self, batch: Dict[str, torch.Tensor]):
         """batch["tokens"]: (B, S), plus ``media`` (vlm) or ``frames``
@@ -531,10 +581,10 @@ class VLMModel(Model):
                      media: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         with _gathered(self.mesh, cp):
-            h = apply_norm(cp.ln1, x, cfg.norm, impl=cfg.norm_impl)
+            h = _norm(cp.ln1, x, cfg)
             x = x + torch.tanh(cp.gate) * attn.cross_attention(
                 cp.xattn, h, media, _attn_cfg(cfg, causal=False))
-            h = apply_norm(cp.ln2, x, cfg.norm, impl=cfg.norm_impl)
+            h = _norm(cp.ln2, x, cfg)
             return x + mlpm.apply_mlp(cp.mlp, h, cfg.mlp)
 
     def _backbone(self, x: torch.Tensor, batch: Dict[str, torch.Tensor],
@@ -607,7 +657,9 @@ class VLMModel(Model):
 
 class SSMModel(Model):
     """Embedding, a stack of Mamba-2 blocks and a final norm; the
-    unembedding is tied to the (row-padded) embedding table."""
+    unembedding is tied to the (row-padded) embedding table.  Every
+    block is an :class:`SSMBlock`; ``_layers`` runs them for training,
+    prefill and decode alike."""
 
     def _block(self, gen: torch.Generator) -> nn.Module:
         return SSMBlock(self.cfg, self.ssm_cfg(), gen, self.dtype)
@@ -616,82 +668,77 @@ class SSMModel(Model):
         cfg = self.cfg
         return m2.SSMConfig(d_model=cfg.d_model, d_state=cfg.ssm_state,
                             head_dim=cfg.ssm_head_dim, expand=cfg.ssm_expand,
-                            conv_width=cfg.conv_width, chunk=cfg.ssm_chunk)
+                            n_groups=cfg.ssm_groups, conv_width=cfg.conv_width,
+                            chunk=cfg.ssm_chunk, norm_eps=cfg.norm_eps)
 
-    def _mamba(self, i: int, x: torch.Tensor, gb: Optional[int] = None) -> torch.Tensor:
-        """Block i over the full sequence, without its states (its
-        parameters gathered on a mesh)."""
-        cfg, blk, mesh = self.cfg, self.blocks[i], self.mesh
+    def _mamba(self, i: int, x: torch.Tensor, gb: Optional[int] = None,
+               t: Optional[torch.Tensor] = None, states: Optional[tuple] = None):
+        """Block i (:meth:`SSMBlock.forward`), its parameters gathered on a
+        mesh."""
+        blk, mesh = self.blocks[i], self.mesh
         with span("model.block", layer=i), _gathered(mesh, blk):
-            x = constrain_batch(x, mesh, gb)
-            y = x + blk.mamba(apply_norm(blk.ln, x, cfg.norm, impl=cfg.norm_impl))
-            return constrain_batch(y, mesh, gb)
+            return constrain_batch(blk(constrain_batch(x, mesh, gb), t, states), mesh, gb)
+
+    def _layers(self, x: torch.Tensor, cache: Optional[Dict[str, Any]] = None,
+                gb: Optional[int] = None) -> torch.Tensor:
+        """Every block over x: the full sequence (B, S, D) without a cache,
+        each block recomputed under remat; with one, a prompt (B, S, D)
+        that fills it or one token (B, D) that updates it in place."""
+        for i in range(self.cfg.n_layers):
+            x = self._remat(self._mamba, i, x, gb, None, _slots(cache, i))
+        return x
 
     def _backbone(self, x: torch.Tensor, batch: Dict[str, torch.Tensor],
                   gb: Optional[int] = None):
-        for i in range(self.cfg.n_layers):
-            x = self._remat(self._mamba, i, x, gb)
-        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        return self._layers(x, None, gb), torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def _kv_shape(self, batch_size: int, seq_len: int) -> Optional[tuple]:
+        """The attention k/v caches' shape; None: no attention."""
+        return None
+
+    def _cache(self, batch_size: int, seq_len: int, alloc) -> Dict[str, Any]:
+        """``init_cache``'s layout, its states and k/v made by ``alloc``
+        (``torch.zeros`` or ``torch.empty``), ``pos`` zeros."""
+        scfg, L, dev = self.ssm_cfg(), self.cfg.n_layers, self.device
+        cache = {"conv": alloc((L, batch_size, scfg.conv_width - 1, scfg.conv_dim),
+                               dtype=self.dtype, device=dev),
+                 "ssm": alloc((L, batch_size, scfg.n_heads, scfg.d_state, scfg.head_dim),
+                              dtype=torch.float32, device=dev),
+                 "pos": torch.zeros(batch_size, dtype=torch.int32, device=dev)}
+        shape = self._kv_shape(batch_size, seq_len)
+        if shape is not None:
+            cache["attn_k"] = alloc(shape, dtype=self.dtype, device=dev)
+            cache["attn_v"] = alloc(shape, dtype=self.dtype, device=dev)
+        return cache
 
     def init_cache(self, batch_size: int, seq_len: int) -> Dict[str, Any]:
-        scfg = self.ssm_cfg()
-        L, dev = self.cfg.n_layers, self.device
-        conv = torch.zeros((L, batch_size, scfg.conv_width - 1, scfg.conv_dim),
-                           dtype=self.dtype, device=dev)
-        ssm = torch.zeros((L, batch_size, scfg.n_heads, scfg.d_state,
-                           scfg.head_dim), dtype=torch.float32, device=dev)
-        return {"conv": conv, "ssm": ssm,
-                "pos": torch.zeros(batch_size, dtype=torch.int32, device=dev)}
-
-    def _mamba_prefill(self, i: int, x: torch.Tensor, convs: list, ssms: list):
-        """Block i over the full sequence (its parameters gathered on a
-        mesh); appends its conv and SSM states."""
-        cfg, blk, mesh = self.cfg, self.blocks[i], self.mesh
-        with span("model.block", layer=i):
-            with _gathered(mesh, blk):
-                x = constrain_batch(x, mesh)
-                h = apply_norm(blk.ln, x, cfg.norm, impl=cfg.norm_impl)
-                y, (cs, ss) = blk.mamba(h, return_state=True)
-            convs.append(cs)
-            ssms.append(ss)
-            return constrain_batch(x + y, mesh)
-
-    def _mamba_decode(self, i: int, x: torch.Tensor, cache, convs: list, ssms: list):
-        """Block i for one token; appends its new conv and SSM states."""
-        cfg, blk = self.cfg, self.blocks[i]
-        with span("model.block", layer=i):
-            with _gathered(self.mesh, blk):
-                h = apply_norm(blk.ln, x, cfg.norm, impl=cfg.norm_impl)
-                y, (cs, ss) = blk.mamba.decode_step(h, (cache["conv"][i], cache["ssm"][i]))
-            convs.append(cs)
-            ssms.append(ss)
-            return x + y
+        return self._cache(batch_size, seq_len, torch.zeros)
 
     @_serving
     def prefill(self, batch: Dict[str, torch.Tensor],
                 max_len: Optional[int] = None):
-        """batch["tokens"]: (B, S) -> (last logits (B, vocab), cache)."""
+        """batch["tokens"]: (B, S) -> (last logits (B, vocab), cache).  The
+        cache has ``init_cache(B, max(S, max_len))``'s layout; it is
+        allocated once and written in place, the attention k/v zeros past
+        S."""
         tokens = self._serve_batch(batch)["tokens"].to(self.device)
-        x = self.embed["table"][tokens]
-        convs, ssms = [], []
-        for i in range(self.cfg.n_layers):
-            x = self._mamba_prefill(i, x, convs, ssms)
         B, S = tokens.shape
-        return self._final(x[:, -1]), {
-            "conv": torch.stack(convs).to(self.dtype), "ssm": torch.stack(ssms),
-            "pos": torch.full((B,), S, dtype=torch.int32, device=self.device)}
+        cache = self._cache(B, max(S, max_len or S), torch.empty)
+        for key in ("attn_k", "attn_v"):
+            if key in cache:
+                cache[key][:, :, S:].zero_()
+        cache["pos"].fill_(S)
+        x = self._layers(self.embed["table"][tokens], cache)
+        return self._final(x[:, -1]), cache
 
     @_serving
     def decode_step(self, tokens: torch.Tensor, cache):
-        """tokens: (B,) -> (logits (B, vocab), new cache)."""
+        """tokens: (B,) -> (logits (B, vocab), new cache).  The states are
+        written at their layer's slot and the k/v at ``pos``, in place; the
+        cache's tensors are returned as they are, with ``pos + 1`` new."""
         tokens = self._serve_batch({"tokens": tokens})["tokens"]
-        x = self.embed["table"][tokens.to(self.device)]           # (B, D)
-        convs, ssms = [], []
-        for i in range(self.cfg.n_layers):
-            x = self._mamba_decode(i, x, cache, convs, ssms)
-        return self._final(x), {"conv": torch.stack(convs),
-                                "ssm": torch.stack(ssms),
-                                "pos": cache["pos"] + 1}
+        x = self._layers(self.embed["table"][tokens.to(self.device)], cache)   # (B, D)
+        return self._final(x), {**cache, "pos": cache["pos"] + 1}
 
 
 # ---------------------------------------------------------------------------
@@ -714,76 +761,39 @@ class HybridModel(SSMModel):
         self.n_trail = cfg.n_layers - self.n_super * cfg.attn_every
         self.shared_attn = TBlock(cfg, generator, self.dtype)
 
-    def init_cache(self, batch_size: int, seq_len: int) -> Dict[str, Any]:
-        cache = super().init_cache(batch_size, seq_len)
-        shape = (self.n_super, batch_size, seq_len, self.cfg.n_kv_heads,
-                 self.cfg.head_dim)
-        cache["attn_k"] = torch.zeros(shape, dtype=self.dtype, device=self.device)
-        cache["attn_v"] = torch.zeros(shape, dtype=self.dtype, device=self.device)
-        return cache
+    def _kv_shape(self, batch_size: int, seq_len: int) -> tuple:
+        return (self.n_super, batch_size, seq_len, self.cfg.n_kv_heads, self.cfg.head_dim)
 
-    def _supercell(self, s: int, x: torch.Tensor, gb: Optional[int] = None) -> torch.Tensor:
+    def _apply_shared(self, s: int, x: torch.Tensor, gb: Optional[int], cache) -> torch.Tensor:
+        """Supercell s's application of the shared attention block; with a
+        cache, its k/v go to slot s (a prompt's) or at ``pos`` (a token's)."""
+        if cache is None:
+            return self._tblock(self.shared_attn, x, gb)[0]
+        if x.dim() == 2:
+            kv = (cache["attn_k"][s], cache["attn_v"][s])
+            return decode_tblock(self.shared_attn, x[:, None], kv, cache["pos"], self.cfg,
+                                 self.mesh)[0][:, 0]
+        x, kv = prefill_tblock(self.shared_attn, x, self.cfg, self.mesh)
+        _fill_kv(cache, s, kv)
+        return x
+
+    def _supercell(self, s: int, x: torch.Tensor, gb: Optional[int] = None,
+                   cache=None) -> torch.Tensor:
         """The shared attention block, then supercell s's Mamba-2 blocks
         (each one recomputed on its own under remat)."""
         ne = self.cfg.attn_every
-        x = self._tblock(self.shared_attn, x, gb)[0]
-        for j in range(ne):
-            x = self._remat(self._mamba, s * ne + j, x, gb)
+        x = self._apply_shared(s, x, gb, cache)
+        for i in range(s * ne, (s + 1) * ne):
+            x = self._remat(self._mamba, i, x, gb, None, _slots(cache, i))
         return x
 
-    def _backbone(self, x: torch.Tensor, batch: Dict[str, torch.Tensor],
-                  gb: Optional[int] = None):
+    def _layers(self, x: torch.Tensor, cache: Optional[Dict[str, Any]] = None,
+                gb: Optional[int] = None) -> torch.Tensor:
         for s in range(self.n_super):
-            x = self._remat(self._supercell, s, x, gb)
-        for t in range(self.n_trail):
-            x = self._remat(self._mamba, self.n_super * self.cfg.attn_every + t, x, gb)
-        return x, torch.zeros((), dtype=torch.float32, device=x.device)
-
-    @_serving
-    def prefill(self, batch: Dict[str, torch.Tensor],
-                max_len: Optional[int] = None):
-        """batch["tokens"]: (B, S) -> (last logits (B, vocab), cache); the
-        k/v caches are zero-padded along S to ``max_len``."""
-        cfg, ne = self.cfg, self.cfg.attn_every
-        tokens = self._serve_batch(batch)["tokens"].to(self.device)
-        x = self.embed["table"][tokens]
-        convs, ssms, ks, vs = [], [], [], []
-        for s in range(self.n_super):
-            x, (k, v) = prefill_tblock(self.shared_attn, x, cfg, self.mesh)
-            ks.append(k)
-            vs.append(v)
-            for j in range(ne):
-                x = self._mamba_prefill(s * ne + j, x, convs, ssms)
-        for t in range(self.n_trail):
-            x = self._mamba_prefill(self.n_super * ne + t, x, convs, ssms)
-        B, S = tokens.shape
-        return self._final(x[:, -1]), {
-            "conv": torch.stack(convs).to(self.dtype), "ssm": torch.stack(ssms),
-            "attn_k": _pad_kv(torch.stack(ks), max_len),
-            "attn_v": _pad_kv(torch.stack(vs), max_len),
-            "pos": torch.full((B,), S, dtype=torch.int32, device=self.device)}
-
-    @_serving
-    def decode_step(self, tokens: torch.Tensor, cache):
-        """tokens: (B,) -> (logits (B, vocab), new cache).  The k/v caches
-        are written at ``pos`` in place and returned as they are."""
-        cfg, ne = self.cfg, self.cfg.attn_every
-        tokens = self._serve_batch({"tokens": tokens})["tokens"]
-        x = self.embed["table"][tokens.to(self.device)]           # (B, D)
-        pos = cache["pos"]
-        convs, ssms = [], []
-        for s in range(self.n_super):
-            y, _ = decode_tblock(self.shared_attn, x[:, None],
-                                 (cache["attn_k"][s], cache["attn_v"][s]), pos, cfg,
-                                 self.mesh)
-            x = y[:, 0]
-            for j in range(ne):
-                x = self._mamba_decode(s * ne + j, x, cache, convs, ssms)
-        for t in range(self.n_trail):
-            x = self._mamba_decode(self.n_super * ne + t, x, cache, convs, ssms)
-        return self._final(x), {"conv": torch.stack(convs), "ssm": torch.stack(ssms),
-                                "attn_k": cache["attn_k"], "attn_v": cache["attn_v"],
-                                "pos": pos + 1}
+            x = self._remat(self._supercell, s, x, gb, cache)
+        for i in range(self.cfg.n_layers - self.n_trail, self.cfg.n_layers):
+            x = self._remat(self._mamba, i, x, gb, None, _slots(cache, i))
+        return x
 
 
 # ---------------------------------------------------------------------------
@@ -818,10 +828,10 @@ class EncDecModel(Model):
         cfg, mesh = self.cfg, self.mesh
         with _gathered(mesh, blk):
             x = constrain_batch(x, mesh, gb)
-            h = apply_norm(blk.ln1, x, cfg.norm, impl=cfg.norm_impl)
+            h = _norm(blk.ln1, x, cfg)
             x = x + attn.self_attention(blk.attn, h, _attn_cfg(cfg, causal=False),
                                         impl=cfg.attn_impl, mesh=mesh)
-            h = apply_norm(blk.ln2, x, cfg.norm, impl=cfg.norm_impl)
+            h = _norm(blk.ln2, x, cfg)
             return constrain_batch(x + mlpm.apply_mlp(blk.mlp, h, cfg.mlp), mesh, gb)
 
     def encode(self, frames: torch.Tensor, gb: Optional[int] = None) -> torch.Tensor:
@@ -831,14 +841,14 @@ class EncDecModel(Model):
         for blk in self.enc_blocks:
             x = self._remat(self._enc_block, blk, x, gb)
         with _gathered(self.mesh, self.enc_ln):
-            return apply_norm(self.enc_ln, x, cfg.norm, impl=cfg.norm_impl)
+            return _norm(self.enc_ln, x, cfg)
 
     def _cross_mlp(self, blk: Block, x: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
         """A decoder block's cross attention and MLP."""
         cfg = self.cfg
-        h = apply_norm(blk.lnx, x, cfg.norm, impl=cfg.norm_impl)
+        h = _norm(blk.lnx, x, cfg)
         x = x + attn.cross_attention(blk.xattn, h, memory, _attn_cfg(cfg, causal=False))
-        h = apply_norm(blk.ln2, x, cfg.norm, impl=cfg.norm_impl)
+        h = _norm(blk.ln2, x, cfg)
         return x + mlpm.apply_mlp(blk.mlp, h, cfg.mlp)
 
     def _dec_block(self, blk: Block, x: torch.Tensor, memory: torch.Tensor,
@@ -846,7 +856,7 @@ class EncDecModel(Model):
         cfg, mesh = self.cfg, self.mesh
         with _gathered(mesh, blk):
             x = constrain_batch(x, mesh, gb)
-            h = apply_norm(blk.ln1, x, cfg.norm, impl=cfg.norm_impl)
+            h = _norm(blk.ln1, x, cfg)
             x = x + attn.self_attention(blk.attn, h, _attn_cfg(cfg), impl=cfg.attn_impl,
                                         mesh=mesh)
             return self._cross_mlp(blk, x, memory)
@@ -879,7 +889,7 @@ class EncDecModel(Model):
         for blk in self.blocks:
             with _gathered(mesh, blk):
                 x = constrain_batch(x, mesh)
-                h = apply_norm(blk.ln1, x, cfg.norm, impl=cfg.norm_impl)
+                h = _norm(blk.ln1, x, cfg)
                 a, (k, v) = attn.prefill_attention(blk.attn, h, _attn_cfg(cfg),
                                                    impl=cfg.attn_impl, mesh=mesh)
                 x = self._cross_mlp(blk, x + a, memory)
@@ -901,7 +911,7 @@ class EncDecModel(Model):
         pos, memory = cache["pos"], cache["memory"]
         for i, blk in enumerate(self.blocks):
             with _gathered(self.mesh, blk):
-                h = apply_norm(blk.ln1, x, cfg.norm, impl=cfg.norm_impl)
+                h = _norm(blk.ln1, x, cfg)
                 a, _ = attn.decode_attention(blk.attn, h, (cache["k"][i], cache["v"][i]),
                                              pos, _attn_cfg(cfg))
                 x = self._cross_mlp(blk, x + a, memory)

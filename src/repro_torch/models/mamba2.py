@@ -11,13 +11,15 @@ The conv reads its input, xin|B|C, in place as the in-projection's
 column range, where the reference concatenates the three; the conv state
 kept for decode is a copy of that range's last W - 1 rows.  Decode is
 plain PyTorch, as it is plain jnp in the reference.  The projections are
-``torch.matmul``.  On the card both kernels are differentiable through
-their plain versions (``kernels/autograd.py``), so a loss carries its
-gradient through the conv and the scan to the in-projection, ``conv_w``,
-``a_log`` and ``dt_bias``.  The mixer's tail (the D skip, the SiLU gate
-and the grouped RMSNorm) is ``kernels.gated_norm.gated_norm_tail``: one
-CUDA kernel on the card, differentiable through its plain version like
-the other two; on the CPU the plain expression.
+``torch.matmul``.  The mixer's tail (the D skip, the SiLU gate and the
+grouped RMSNorm) is ``kernels.gated_norm.gated_norm_tail``: one CUDA
+kernel on the card, on the CPU the plain expression.  On the card a
+loss carries its gradient through the three kernels to the
+in-projection, ``conv_w``, ``a_log`` and ``dt_bias``: the SSD's bf16
+tensor-core instance with one B/C group has a gradient kernel of its
+own (``kernels/ssd/ops.py::SSDFunction``); conv1d, the tail and every
+other SSD call differentiate through their plain versions
+(``PlainGrad``, ``kernels/autograd.py``).
 """
 
 from __future__ import annotations

@@ -41,9 +41,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ref import NEG_INF
 from repro_torch.tracing import span
-from . import mamba2 as m2
 from .common import apply_rope, dense_init, rmsnorm
-from .lm import SSMModel, _device, _generator, _serving
+from .lm import SSMModel, _device, _fill_kv, _generator, _slots
 
 
 def attn_head_dim(cfg: ModelConfig) -> int:
@@ -162,113 +161,37 @@ class Zamba2Model(SSMModel):
         #: layer -> its application's index
         self.app_of = {l: j for j, l in enumerate(cfg.hybrid_layer_ids)}
 
-    def ssm_cfg(self) -> m2.SSMConfig:
-        cfg = self.cfg
-        return m2.SSMConfig(d_model=cfg.d_model, d_state=cfg.ssm_state,
-                            head_dim=cfg.ssm_head_dim, expand=cfg.ssm_expand,
-                            n_groups=cfg.ssm_groups, conv_width=cfg.conv_width,
-                            chunk=cfg.ssm_chunk, norm_eps=cfg.norm_eps)
-
-    def _norm(self, x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-        return rmsnorm(x, scale, self.cfg.norm_eps, self.cfg.norm_impl)
-
-    def _final(self, x: torch.Tensor) -> torch.Tensor:
-        return self._logits(self._norm(x, self.ln_f["scale"]))
-
     def _shared_parts(self, i: int):
         """Hybrid layer i's shared block, application and their indices."""
         j = self.app_of[i]
         b = j % len(self.shared)
         return self.shared[b], self.apps[j], b, j
 
-    def _layer(self, i: int, x: torch.Tensor, e: torch.Tensor, kv=None, states=None):
-        """Layer i over the full sequence: its application of a shared block
-        (its k, v written into ``kv`` = (K, V) caches when given), then its
-        mixer (its conv and SSM states appended to ``states`` when given)."""
+    def _layer(self, i: int, x: torch.Tensor, e: torch.Tensor, cache) -> torch.Tensor:
+        """Layer i: its application of a shared block, if it has one, whose
+        term t the block's norm reads, then its block.  With a cache, a
+        prompt x (B, S, d) writes the application's k/v into its slot, one
+        token x (B, d) at ``pos`` (:meth:`SSMModel._layers`)."""
         t = None
         if i in self.app_of:
             blk, app, b, j = self._shared_parts(i)
             with span("zamba2.shared", layer=i, block=b, application=j):
-                t, (k, v) = shared(blk, app, x, e, self.cfg)
-            if kv is not None:
-                S = k.shape[1]
-                kv[0][j, :, :S] = k
-                kv[1][j, :, :S] = v
-        blk = self.blocks[i]
-        with span("model.block", layer=i):
-            h = self._norm(x if t is None else x + t, blk.ln["scale"])
-            if states is None:
-                return x + blk.mamba(h)
-            y, (cs, ss) = blk.mamba(h, return_state=True)
-        states[0].append(cs)
-        states[1].append(ss)
-        return x + y
+                if x.dim() == 2:
+                    t = shared_decode(blk, app, x, e, cache["attn_k"][j], cache["attn_v"][j],
+                                      cache["pos"], self.cfg)
+                else:
+                    t, kv = shared(blk, app, x, e, self.cfg)
+            if cache is not None and x.dim() == 3:
+                _fill_kv(cache, j, kv)
+        return self._mamba(i, x, t=t, states=_slots(cache, i))
 
-    def _backbone(self, x: torch.Tensor, batch: Dict[str, torch.Tensor],
-                  gb: Optional[int] = None):
+    def _layers(self, x: torch.Tensor, cache: Optional[Dict[str, Any]] = None,
+                gb: Optional[int] = None) -> torch.Tensor:
         e = x
         for i in range(self.cfg.n_layers):
-            x = self._remat(self._layer, i, x, e)
-        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+            x = self._remat(self._layer, i, x, e, cache)
+        return x
 
-    def _hidden(self, batch: Dict[str, torch.Tensor], gb: Optional[int]):
-        x = self.embed["table"][batch["tokens"].to(self.device)]
-        x, aux = self._backbone(x, batch, gb)
-        return self._norm(x, self.ln_f["scale"]), aux
-
-    def _kv_shape(self, batch_size: int, seq_len: int):
+    def _kv_shape(self, batch_size: int, seq_len: int) -> tuple:
         cfg = self.cfg
         return (len(cfg.hybrid_layer_ids), batch_size, seq_len, cfg.n_heads, attn_head_dim(cfg))
-
-    def init_cache(self, batch_size: int, seq_len: int) -> Dict[str, Any]:
-        cache = super().init_cache(batch_size, seq_len)
-        shape = self._kv_shape(batch_size, seq_len)
-        cache["attn_k"] = torch.zeros(shape, dtype=self.dtype, device=self.device)
-        cache["attn_v"] = torch.zeros(shape, dtype=self.dtype, device=self.device)
-        return cache
-
-    @_serving
-    def prefill(self, batch: Dict[str, torch.Tensor], max_len: Optional[int] = None):
-        """batch["tokens"]: (B, S) -> (last logits (B, vocab), cache); each
-        application's k/v cache holds ``max_len`` positions (S if None),
-        zeros past S."""
-        tokens = batch["tokens"].to(self.device)
-        B, S = tokens.shape
-        shape = self._kv_shape(B, max(S, max_len or S))
-        kv = (torch.empty(shape, dtype=self.dtype, device=self.device),
-              torch.empty(shape, dtype=self.dtype, device=self.device))
-        for c in kv:
-            c[:, :, S:].zero_()
-        e = x = self.embed["table"][tokens]
-        states = ([], [])
-        for i in range(self.cfg.n_layers):
-            x = self._layer(i, x, e, kv, states)
-        return self._final(x[:, -1]), {
-            "conv": torch.stack(states[0]).to(self.dtype), "ssm": torch.stack(states[1]),
-            "attn_k": kv[0], "attn_v": kv[1],
-            "pos": torch.full((B,), S, dtype=torch.int32, device=self.device)}
-
-    @_serving
-    def decode_step(self, tokens: torch.Tensor, cache):
-        """tokens: (B,) -> (logits (B, vocab), new cache); the k/v caches are
-        written at ``pos`` in place and returned as they are."""
-        e = x = self.embed["table"][tokens.to(self.device)]           # (B, d)
-        pos = cache["pos"]
-        convs, ssms = [], []
-        for i in range(self.cfg.n_layers):
-            h = x
-            if i in self.app_of:
-                blk, app, b, j = self._shared_parts(i)
-                with span("zamba2.shared", layer=i, block=b, application=j):
-                    h = x + shared_decode(blk, app, x, e, cache["attn_k"][j],
-                                          cache["attn_v"][j], pos, self.cfg)
-            mixer = self.blocks[i]
-            with span("model.block", layer=i):
-                y, (cs, ss) = mixer.mamba.decode_step(
-                    self._norm(h, mixer.ln["scale"]), (cache["conv"][i], cache["ssm"][i]))
-            convs.append(cs)
-            ssms.append(ss)
-            x = x + y
-        return self._final(x), {"conv": torch.stack(convs), "ssm": torch.stack(ssms),
-                                "attn_k": cache["attn_k"], "attn_v": cache["attn_v"],
-                                "pos": pos + 1}

@@ -616,11 +616,15 @@ def test_flash_wrapper_rejects_bad_inputs(card):
         kernel(q2, k2, v2, causal=False)
 
 
-def test_zamba2_prefill_on_card_matches_plain(card):
-    """The reduced 5-layer hybrid (two supercells, one trailing block):
-    prefill and one decode step on the card (2 flash-attention, 5 conv1d
-    and 5 SSD launches per prefill) against the same weights on the CPU."""
-    cfg = reduced(get_config("zamba2-1.2b")).replace(n_layers=5)
+@pytest.mark.parametrize("arch,n_layers,n_flash", [("zamba2-1.2b", 5, 2), ("zamba2-7b", 6, 4)])
+def test_zamba2_prefill_on_card_matches_plain(card, arch, n_layers, n_flash):
+    """The reduced 5-layer hybrid (two supercells, one trailing block) and
+    the reduced Zamba2-7B (6 layers, 4 of them with a shared-block
+    application, two B/C groups): prefill and one decode step on the card
+    (a flash-attention launch per application, a conv1d and an SSD
+    launch per layer) against the same weights on the CPU, caches
+    included."""
+    cfg = reduced(get_config(arch)).replace(n_layers=n_layers)
     cpu = build_model(cfg, device="cpu")
     gpu = build_model(cfg, device="cuda")
     gpu.load_state_dict(cpu.state_dict())
@@ -632,17 +636,23 @@ def test_zamba2_prefill_on_card_matches_plain(card):
     torch.cuda.synchronize()
     assert tconv.launch_counts()["conv1d_shuffle_w4"] == cfg.n_layers
     assert tssd.launch_counts()["ssd"] == cfg.n_layers
-    assert tfa.launch_counts()["flash_attention"] == gpu.n_super == 2
+    n_apps = gpu.n_super if cfg.family == "hybrid" else len(cfg.hybrid_layer_ids)
+    assert tfa.launch_counts()["flash_attention"] == n_apps == n_flash
     want, want_cache = cpu.prefill({"tokens": tokens}, max_len=50)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
-    for key in ("conv", "ssm", "attn_k", "attn_v"):
+    keys = ("conv", "ssm", "attn_k", "attn_v")
+    for key in keys:
         torch.testing.assert_close(cache[key].cpu(), want_cache[key],
                                    rtol=1e-4, atol=1e-4)
     nxt = want.argmax(-1)
-    got2, _ = gpu.decode_step(nxt.cuda(), cache)
-    want2, _ = cpu.decode_step(nxt, want_cache)
+    got2, cache2 = gpu.decode_step(nxt.cuda(), cache)
+    want2, want_cache2 = cpu.decode_step(nxt, want_cache)
     torch.testing.assert_close(got2.cpu(), want2, rtol=1e-4, atol=1e-4)
-    assert tfa.launch_counts()["flash_attention"] == 2      # decode launches none
+    for key in keys:
+        assert cache2[key] is cache[key]
+        torch.testing.assert_close(cache2[key].cpu(), want_cache2[key],
+                                   rtol=1e-4, atol=1e-4)
+    assert tfa.launch_counts()["flash_attention"] == n_flash      # decode launches none
 
 
 @pytest.mark.parametrize("arch", ["olmo-1b", "yi-9b", "starcoder2-3b"])

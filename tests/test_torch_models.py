@@ -1,7 +1,8 @@
 """The port's counterparts of the reference's model tests
 (``tests/test_models.py``): serve-path consistency for every registered
-arch, the chunked cross-entropy and ``loss`` of every family against the
-JAX package on the same inputs, and a family the port does not know.
+arch, the SSM families' caches written in place, the chunked
+cross-entropy and ``loss`` of every family against the JAX package on
+the same inputs, and a family the port does not know.
 Media (VLM) and frames (enc-dec) are seeded standard normals, as in the
 reference's test; the VLM's gates, 0 at init, are set to 0.5 so that
 its cross blocks act."""
@@ -57,6 +58,34 @@ def test_arch_serve_consistency(arch):
     torch.testing.assert_close(lg_p, full[:, S - 2], rtol=1e-4, atol=1e-4)
     lg_d, _ = model.decode_step(toks[:, S - 1], cache)
     torch.testing.assert_close(lg_d, full[:, S - 1], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-1.2b", "zamba2-7b"])
+def test_ssm_cache_is_written_in_place(arch):
+    """The SSM families' prefill cache has ``init_cache``'s keys, shapes
+    and dtypes for the same batch and ``max_len``; ``decode_step`` returns
+    the very tensors it was given, with ``pos + 1`` a new tensor, and the
+    states and k/v it wrote into them are those of a prefill one token
+    longer."""
+    cfg = reduced(get_config(arch))
+    model = build_model(cfg, device="cpu")
+    rng = np.random.default_rng(0)
+    B, S, max_len = 2, 15, 20           # S + 1 one SSD chunk
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S + 1)))
+    _, cache = model.prefill({"tokens": toks[:, :S]}, max_len=max_len)
+    zeros = model.init_cache(B, max_len)
+    assert list(cache) == list(zeros)
+    for key, want in zeros.items():
+        assert (cache[key].shape, cache[key].dtype) == (want.shape, want.dtype), key
+    given, pos = dict(cache), cache["pos"].clone()
+    _, after = model.decode_step(toks[:, S], cache)
+    assert list(after) == list(given)
+    assert all(after[key] is given[key] for key in given if key != "pos")
+    assert after["pos"] is not given["pos"] and torch.equal(given["pos"], pos)
+    assert torch.equal(after["pos"], pos + 1)
+    _, longer = model.prefill({"tokens": toks}, max_len=max_len)
+    for key in given:
+        torch.testing.assert_close(after[key], longer[key], rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("B,S,masked", [(1, 8, 0), (2, 16, 1), (3, 32, 0),
