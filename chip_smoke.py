@@ -101,6 +101,14 @@ Phases, each fatal on failure:
    tie, ``ref.compare_bf16``; the share of bit-identical elements
    printed) and
    timed beside its bound (8 bytes a channel) and the plain tail;
+7d. AdamW alone over mamba2-1.3b's whole parameter set at its published
+   widths (1.34 B parameters, bf16 weights and gradients, float32
+   moments): one update through ``train.optim.adamw_update`` (the
+   multi-tensor kernel, three launches) held bit for bit against the
+   plain per-tensor update on the card given the kernel's clip scale, its
+   norm against a float64 sum; then the update timed beside its bound (22
+   bytes a parameter) and the plain update, its device kernels split from
+   a trace, and the host's time to enqueue it;
 8. the training path: one train step of the reduced olmo-1b, mamba2-1.3b,
    zamba2-1.2b, granite-moe-1b-a400m, seamless-m4t-large-v2 and
    llama-3.2-vision-90b in float32 on the card (every kernel through its
@@ -265,8 +273,11 @@ MAMBA, HYBRID = "mamba2-1.3b", "zamba2-1.2b"
 ZAMBA2_7B, ZAMBA2_7B_BATCH = "zamba2-7b", (8, 4096)
 # phase 7c: the mixer's tail at the mamba2-1.3b.prefill-pool cell's largest batch
 MAMBA_TAIL_BATCH = (8, 4096)
-# ``--only``: phases 7c and 7b, the two 8 x 4096 prefills, alone
-ONLY_PREFILLS = "prefill-8x4096"
+# ``--only``: phases 7c and 7b, the two 8 x 4096 prefills, alone; phase 7d alone
+ONLY_PREFILLS, ONLY_ADAMW = "prefill-8x4096", "adamw"
+ADAMW_SOURCE = "src/repro_torch/kernels/adamw/csrc/adamw.cu"
+# the optimizer is jnp in the JAX package, no Pallas kernel
+ADAMW_REPLACES = "none: src/repro/train/optim.py (jnp)"
 DENSE = ("olmo-1b", "yi-9b")                        # served at full width
 MOE, ENCDEC = "granite-moe-1b-a400m", "seamless-m4t-large-v2"     # the same
 # card vs CPU, reduced only: kimi-k2 (1.04 T parameters) and
@@ -1446,6 +1457,111 @@ def mamba2_tail_prefill(report, entries) -> None:
     torch.cuda.empty_cache()
     layer0_tail(captured.pop("tail"), launches, rec, entries, "gated_norm",
                 phase="mamba2-tail")
+    torch.cuda.empty_cache()
+
+
+def adamw_full_set(report, entries) -> None:
+    """Phase 7d.  AdamW over ``mamba2-1.3b``'s parameters at its published
+    widths, with random gradients of the parameters' dtypes large enough
+    to clip: one update through ``adamw_update`` (the kernel) against the
+    plain update on the card, m, v and p bit for bit given the kernel's
+    scale; then the kernel and the plain update (``adamw_update`` with the
+    card among the plain devices) timed in turns, the kernel's device
+    operations read from a trace and the host's enqueue time taken."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.interop import reference_ndims
+    from repro_torch.kernels import adamw as tadam
+    from repro_torch.models import build_model
+    from repro_torch.train import optim
+
+    cfg = get_config(MAMBA)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    model = build_model(cfg, device="cuda", generator=gen)
+    params = dict(model.named_parameters())
+    ndims = reference_ndims(cfg, params)
+    grads = {k: (1e-3 * torch.randn(p.shape, generator=gen, device="cuda")).to(p.dtype)
+             for k, p in params.items()}
+    opt = optim.OptConfig()
+    state = optim.init_opt_state(params)
+    n = sum(p.numel() for p in params.values())
+    tadam.build_kernel()
+
+    # one update, held against the plain update on the card
+    p0 = {k: p.detach().clone() for k, p in params.items()}
+    mu0 = {k: m.clone() for k, m in state.mu.items()}
+    nu0 = {k: v.clone() for k, v in state.nu.items()}
+    tadam.reset_launch_counts()
+    _, _, met = optim.adamw_update(opt, grads, state, params, ndims)
+    torch.cuda.synchronize()
+    launches = tadam.launch_counts()
+    if launches != {"adamw": 3}:
+        raise RuntimeError(f"adamw: launches {launches}, expected 3")
+    gnorm = met["grad_norm"]
+    scale = torch.clamp(opt.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
+    steps = (state.count + 1).float()
+    b1c, b2c = 1 - opt.b1 ** steps, 1 - opt.b2 ** steps
+    with torch.no_grad():
+        for k in params:
+            tadam.ref.adamw_tensor(opt, p0[k], grads[k], mu0[k], nu0[k], scale, met["lr"],
+                                   b1c, b2c, ndims[k] >= 2)
+    differ = [k for k, p in params.items() if not (
+        torch.equal(p, p0[k]) and torch.equal(state.mu[k], mu0[k])
+        and torch.equal(state.nu[k], nu0[k]))]
+    exact = sum(float(torch.sum(g.double() ** 2)) for g in grads.values()) ** 0.5
+    plain_norm = float(optim.global_norm(grads[k] for k in params))
+    del p0, mu0, nu0
+    torch.cuda.empty_cache()
+    if differ:
+        raise RuntimeError(f"adamw: {len(differ)} tensors differ from the plain update, "
+                           f"first {differ[:4]}")
+    norm_rel = abs(float(gnorm) - exact) / exact
+    if norm_rel > 1e-6:
+        raise RuntimeError(f"adamw: norm {float(gnorm)} against float64 {exact}")
+
+    def kernel_step():
+        optim.adamw_update(opt, grads, state, params, ndims)
+
+    def plain_step():
+        real = optim.PLAIN_DEVICES
+        optim.PLAIN_DEVICES = real + ("cuda",)
+        try:
+            optim.adamw_update(opt, grads, state, params, ndims)
+        finally:
+            optim.PLAIN_DEVICES = real
+
+    times = cold_ms({"kernel": kernel_step, "plain": plain_step}, 6)
+    ms, plain_ms = times["kernel"], times["plain"]
+    ops_us = kernel_times(kernel_step, "adamw", n=3)
+    host_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kernel_step()
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    nbytes = sum(p.numel() * (2 * grads[k].element_size() + 2 * p.element_size() + 16)
+                 for k, p in params.items())
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    kernel_ms = {k: us / 1e3 for k, us in ops_us.items() if "adamw::" in k}
+    report["adamw"] = {"arch": MAMBA, "tensors": len(params), "parameters": n,
+                       "bytes": nbytes, "bound_ms": bound_ms, "ms": ms, "plain_ms": plain_ms,
+                       "kernels_ms": kernel_ms, "device_ops": len(ops_us),
+                       "host_enqueue_ms": statistics.median(host_ms), "norm_rel": norm_rel,
+                       "plain_norm_rel": abs(plain_norm - exact) / exact}
+    entries.append({"name": "adamw", "route": "cuda", "source": ADAMW_SOURCE,
+                    "replaces": ADAMW_REPLACES, "launches": launches["adamw"], "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+                    "library_ms": None})
+    print(f"[adamw] {MAMBA}: {len(params)} tensors, {n} parameters; m, v and p bit for bit "
+          f"the plain update's; norm {float(gnorm):.6f} ({norm_rel:.2e} of float64; plain "
+          f"{report['adamw']['plain_norm_rel']:.2e})")
+    print(f"[adamw] update {ms:.3f} ms, bound {bound_ms:.3f} ms (bytes, {nbytes / 1e9:.2f} "
+          f"GB; {100 * bound_ms / ms:.1f} %); plain {plain_ms:.3f} ms; host enqueue "
+          f"{statistics.median(host_ms):.3f} ms; device operations "
+          + ", ".join(f"{k.split('(')[0]} {us / 1e3:.3f} ms" for k, us in ops_us.items()))
+    del model, params, grads, state
     torch.cuda.empty_cache()
 
 
@@ -3045,8 +3161,9 @@ def main() -> int:
     t_start = time.perf_counter()
     report = {"sass": {}, "medium": {}, "paper": {}}
     only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv else None
-    if only not in (None, ONLY_PREFILLS):
-        raise ValueError(f"--only {only!r}: the phases run alone are {ONLY_PREFILLS!r}")
+    if only not in (None, ONLY_PREFILLS, ONLY_ADAMW):
+        raise ValueError(f"--only {only!r}: the phases run alone are {ONLY_PREFILLS!r} "
+                         f"and {ONLY_ADAMW!r}")
 
     # -- 1. toolchain -------------------------------------------------------
     card = card_line()
@@ -3057,6 +3174,13 @@ def main() -> int:
     if cap != (9, 0):
         raise RuntimeError(f"the kernels are built for sm_90a; device is sm_{cap[0]}{cap[1]}")
 
+    if only == ONLY_ADAMW:
+        entries = []
+        adamw_full_set(report, entries)
+        print(f"[done] {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print(json.dumps({"kernels": entries}))
+        return 0
     if only is not None:
         entries = []
         kernels = {"conv": dict(zip([(m, 4) for m in tconv.MODES],
@@ -3328,6 +3452,10 @@ def main() -> int:
     # -- 7c. the mixer's tail at Mamba-2's 8 x 4096 prefill ---------------------
     torch.cuda.empty_cache()
     mamba2_tail_prefill(report, entries)
+
+    # -- 7d. AdamW alone over Mamba-2's parameters -------------------------------
+    torch.cuda.empty_cache()
+    adamw_full_set(report, entries)
 
     # -- 8. training: reduced card vs CPU, the loss falling, a checkpoint
     #       round trip; olmo-1b, mamba2-1.3b and granite at full width -------

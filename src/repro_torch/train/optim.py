@@ -15,6 +15,12 @@ dimensions (``interop.reference_ndims``).
 returns new arrays; here the parameters and moments are updated in place,
 which saves a copy of each on the card.
 
+On the card the update is one hand-written multi-tensor CUDA update
+(:mod:`repro_torch.kernels.adamw`: the norm, the clip scale and every
+tensor's step in three launches, with this arithmetic rounded at the same
+points); on the CPU and ``meta`` it is the plain version, tensor by
+tensor (:func:`repro_torch.kernels.adamw.ref.adamw_tensor`).
+
 On a mesh the parameters, their gradients and the moments are DTensors
 of the same placements: the update is elementwise, so it runs on each
 rank's shards, and the global norm that clipping reads is taken over the
@@ -30,6 +36,10 @@ from typing import Dict, Iterable, Mapping, NamedTuple, Optional, Tuple
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor
+
+from repro_torch.kernels import adamw as adamw_kernel
+from repro_torch.kernels.adamw import ref as adamw_ref
+from repro_torch.kernels.autograd import PLAIN_DEVICES
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -80,6 +90,32 @@ def init_opt_state(params: Mapping[str, torch.Tensor]) -> OptState:
                           device=next(iter(params.values())).device))
 
 
+def _split(t: torch.Tensor) -> Tuple[Optional[object], Tuple[int, ...]]:
+    """A DTensor's mesh and the mesh dimensions that split it with more
+    than one rank; (None, ()) for a plain tensor."""
+    if not isinstance(t, DTensor):
+        return None, ()
+    if any(pl.is_partial() for pl in t.placements):
+        raise ValueError(f"global_norm of a partial DTensor {t.placements}")
+    mesh = t.device_mesh
+    return mesh, tuple(i for i, pl in enumerate(t.placements)
+                       if pl.is_shard() and mesh.size(i) > 1)
+
+
+def _sum_shards(v: torch.Tensor, split) -> torch.Tensor:
+    """Each tensor's local sum of squares in ``v`` added over the mesh
+    dimensions that split it (``split``, :func:`_split` of each): one
+    all-reduce per mesh dimension, for all the tensors it splits."""
+    groups = {(id(m), i): (m, i) for m, dims in split for i in dims}
+    for (mid, i), (mesh, _) in groups.items():
+        mask = torch.tensor([id(m) == mid and i in dims for m, dims in split],
+                            device=v.device)
+        part = torch.where(mask, v, torch.zeros_like(v))
+        dist.all_reduce(part, group=mesh.get_group(i))
+        v = torch.where(mask, part, v)
+    return v
+
+
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in float32, summed
     tensor by tensor in order.  A DTensor's elements count once each: its
@@ -88,26 +124,10 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     mesh of one rank sums exactly as one device does."""
     sums, split = [], []
     for t in tensors:
-        if not isinstance(t, DTensor):
-            sums.append(torch.sum(torch.square(t.float())))
-            split.append((None, ()))
-            continue
-        if any(pl.is_partial() for pl in t.placements):
-            raise ValueError(f"global_norm of a partial DTensor {t.placements}")
-        mesh = t.device_mesh
-        split.append((mesh, tuple(i for i, pl in enumerate(t.placements)
-                                  if pl.is_shard() and mesh.size(i) > 1)))
-        sums.append(torch.sum(torch.square(t.to_local().float())))
-    groups = {(id(m), i): (m, i) for m, dims in split for i in dims}
-    if groups:
-        v = torch.stack(sums)
-        for (mid, i), (mesh, _) in groups.items():
-            mask = torch.tensor([id(m) == mid and i in dims for m, dims in split],
-                                device=v.device)
-            part = torch.where(mask, v, torch.zeros_like(v))
-            dist.all_reduce(part, group=mesh.get_group(i))
-            v = torch.where(mask, part, v)
-        sums = list(v.unbind())
+        split.append(_split(t))
+        sums.append(torch.sum(torch.square(_local(t).float())))
+    if any(dims for _, dims in split):
+        sums = list(_sum_shards(torch.stack(sums), split).unbind())
     return torch.sqrt(sum(sums))
 
 
@@ -125,26 +145,34 @@ def adamw_update(cfg: OptConfig, grads: Mapping[str, torch.Tensor], state: OptSt
     updated in place; returns (params, new state, {"grad_norm", "lr"})
     with the gradient norm taken before clipping.  A parameter is decayed
     where ``ndims`` (its own dimensions if None) is 2 or more.  DTensor
-    parameters take gradients and moments of their placements."""
-    gnorm = global_norm(grads[k] for k in params)
-    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
+    parameters take gradients and moments of their placements.  On the
+    card the whole update is :mod:`repro_torch.kernels.adamw`'s kernel;
+    on the CPU and ``meta`` its plain version, tensor by tensor."""
     count = state.count + 1
-    lr = lr_schedule(cfg, count)
-    b1c = 1 - cfg.b1 ** count.float()
-    b2c = 1 - cfg.b2 ** count.float()
+    steps = count.float()
+    lr = lr_schedule(cfg, steps)
+    b1c = 1 - cfg.b1 ** steps
+    b2c = 1 - cfg.b2 ** steps
+    entries = []
     for k, p in params.items():
         if isinstance(p, DTensor) and grads[k].placements != p.placements:
             raise ValueError(f"{k}: gradient placed {grads[k].placements}, "
                              f"parameter {p.placements}")
-        g = _local(grads[k]).float() * scale
-        m, v = _local(state.mu[k]), _local(state.nu[k])
-        p = _local(p)
-        m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
-        v.copy_(cfg.b2 * v + (1 - cfg.b2) * torch.square(g))
-        step = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
-        if (p.ndim if ndims is None else ndims[k]) >= 2:   # decoupled decay
-            step = step + cfg.weight_decay * p.float()
-        p.copy_(p.float() - lr * step)
+        decay = (p.ndim if ndims is None else ndims[k]) >= 2     # decoupled decay
+        entries.append((_local(grads[k]), _local(p), _local(state.mu[k]),
+                        _local(state.nu[k]), decay))
+    if entries[0][1].device.type in PLAIN_DEVICES:
+        gnorm = global_norm(grads[k] for k in params)
+        scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
+        for g, p, m, v, decay in entries:
+            adamw_ref.adamw_tensor(cfg, p, g, m, v, scale, lr, b1c, b2c, decay)
+    else:
+        split = [_split(grads[k]) for k in params]
+        sum_shards = ((lambda v: _sum_shards(v, split))
+                      if any(dims for _, dims in split) else None)
+        # a gradient autograd left as a strided view is made dense first
+        entries = [(g.contiguous(), *rest) for g, *rest in entries]
+        gnorm = adamw_kernel.build_kernel()(entries, cfg, lr, b1c, b2c, sum_shards)
     return params, OptState(state.mu, state.nu, count), {"grad_norm": gnorm, "lr": lr}
 
 
