@@ -79,8 +79,8 @@ Phases, each fatal on failure:
    and the loss), also for starcoder2-3b, which runs reduced only; f32
    continuity at full width for olmo-1b; then the MoE and enc-dec paths
    the same way: granite-moe-1b-a400m (24 layers, GQA 16/8 at Dh 64, 32
-   experts top-8 by the dense dispatch; 24 flash launches per prefill,
-   its traced prefill with a ``moe`` share for the expert products, f32
+   experts top-8 by the dropless dispatch; 24 flash launches per prefill,
+   its traced prefill with a ``moe`` share for the dispatch, f32
    continuity) and seamless-m4t-large-v2 (24 encoder layers, non-causal
    over 1024 seeded frames, and 24 decoder layers with cross attention;
    48 flash launches per prefill, none per decode step; its first
@@ -160,7 +160,7 @@ Phases, each fatal on failure:
    rank), built with the mesh, serves phase 6's traffic through
    ``serve.generate`` with launch counts read around the run (24 flash
    per prefill, all ``tensor_core``, none per decode step): prefill and
-   decode times and peak beside phase 7's granite (the dense dispatch),
+   decode times and peak beside phase 7's granite (the dropless dispatch),
    cap and the share of dropped pairs per layer, a traced prefill with
    the dispatch as its ``moe`` family; layer 0's MoE input from that run
    through the dispatch against the dense dispatch with the dropped
@@ -765,13 +765,13 @@ def reduced_card_vs_cpu(report, arch: str) -> None:
           f"{float(ref_loss):.4f} |err| {loss_err:.2e}")
 
 
-def prefill_split(model, batch, arch: str, moe_fn: str = "_expert_ffn") -> dict:
+def prefill_split(model, batch, arch: str, moe_fn: str = "apply_moe_dropless") -> dict:
     """Device time of one warm full-width prefill by kernel family, from a
     ``torch.profiler`` trace (CPU and CUDA activity), beside the prefill's
-    wall time measured without the profiler.  A MoE's expert products
-    (``moe._expert_ffn``, wrapped here in a ``smoke::moe`` range; or the
-    function of ``moe`` named ``moe_fn``, the whole sharded dispatch on a
-    mesh) are the ``moe`` family: every kernel that starts inside that
+    wall time measured without the profiler.  A MoE's dispatch (the
+    function of ``moe`` named ``moe_fn``, wrapped here in a ``smoke::moe``
+    range: the one-device dropless dispatch, or the whole sharded dispatch
+    on a mesh) is the ``moe`` family: every kernel that starts inside that
     range's device span, as ``train_split`` reads its ranges."""
     import torch
     from torch.autograd import DeviceType
@@ -2458,7 +2458,7 @@ def moe_mesh_train(report, mesh) -> None:
     (1, 1) mesh through ``launch.train``'s mesh branch for phase 8's steps
     at its lr: finite losses and gradients, exactly 48 flash launches per
     step, the drop share per step, step ms, tokens/s and peak beside phase
-    8's granite (the dense dispatch, without a mesh), one warm step
+    8's granite (the dropless dispatch, without a mesh), one warm step
     traced with a ``moe`` family."""
     import numpy as np
     import torch
@@ -2530,7 +2530,7 @@ def moe_mesh_train(report, mesh) -> None:
                     k: before[k] for k in ("step_ms", "tokens_per_s", "peak_gib", "losses")}})
     print(f"[mesh-moe] {MOE} (moe_impl='sharded') trained on the (1, 1) mesh at full width, "
           f"{TRAIN['steps']} steps of {TRAIN['batch']} x {TRAIN['seq']} tokens: step "
-          f"{step_ms:.1f} ms (phase 8, dense dispatch: {before['step_ms']:.1f}), "
+          f"{step_ms:.1f} ms (phase 8, dropless dispatch: {before['step_ms']:.1f}), "
           f"{rec['tokens_per_s']:.0f} tokens/s (phase 8 {before['tokens_per_s']:.0f}), peak "
           f"{peak:.2f} GiB (phase 8 {before['peak_gib']:.2f}); losses "
           + " ".join(f"{x:.4f}" for x in losses) + " (phase 8 "

@@ -27,6 +27,7 @@ ARCHS = sorted(all_configs())
 
 # architectures of the port alone
 from . import zamba2_7b  # noqa: E402,F401
+from . import granite_4_0_h_small  # noqa: E402,F401
 
 #: every registered architecture
 PORT_ARCHS = sorted(all_configs())

@@ -16,7 +16,8 @@ from typing import Dict, Tuple
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | moe | vlm | ssm | hybrid | zamba2 | audio
+    family: str                    # dense | moe | vlm | ssm | hybrid | zamba2 |
+                                   # granite_hybrid | audio
     n_layers: int
     d_model: int
     vocab: int
@@ -45,6 +46,13 @@ class ModelConfig:
     attn_width: int = 0            # the shared attention's width (its input is
                                    # [hidden, embedding], 2 x d_model wide)
     norm_eps: float = 1e-6         # every RMSNorm's epsilon
+    # --- granite_hybrid: IBM's Granite-4.0-H layers ---
+    layer_types: Tuple[str, ...] = ()  # each layer's mixer: "mamba" | "attention"
+    shared_ff: int = 0             # the shared expert's width (0: none)
+    embedding_multiplier: float = 1.0  # the embedding's output is scaled by it
+    residual_multiplier: float = 1.0   # every residual branch is scaled by it
+    logits_scaling: float = 1.0    # the logits are divided by it
+    attention_multiplier: float = 0.0  # the attention scores' scale; 0: Dh^-1/2
     # --- VLM ---
     cross_every: int = 0           # a cross-attn layer every N layers
     n_media_tokens: int = 1600     # stub vision tokens (frontend is a stub)
@@ -134,6 +142,9 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
                   ssm_groups=min(cfg.ssm_groups, 2))
     if cfg.n_encoder_layers:
         kw.update(n_encoder_layers=2)
+    if cfg.layer_types:                # both kinds of mixer, each with its MoE
+        kw.update(n_layers=3, layer_types=("mamba", "attention", "mamba"), shared_ff=96,
+                  n_experts=6, moe_top_k=3)
     return cfg.replace(**kw)
 
 

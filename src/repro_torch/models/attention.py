@@ -19,7 +19,7 @@ there: :func:`naive_attention` up to S * M = 4096^2 scores, else
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -153,25 +153,29 @@ def self_attention(params: Params, x: torch.Tensor, cfg: AttnConfig,
 
 
 def prefill_attention(params: Params, x: torch.Tensor, cfg: AttnConfig,
-                      impl: str = "blockwise", mesh=None):
+                      impl: str = "blockwise", mesh=None, scale: Optional[float] = None):
     """:func:`self_attention` that also returns the (k, v) cache.
-    x: (B, S, D)."""
+    x: (B, S, D).  ``scale`` multiplies the scores, Dh^-1/2 if None (ring
+    attention takes None only)."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     q, k, v = qkv(params, x, positions, cfg)
     if _ring_applies(impl, mesh, S):
         from repro_torch.distributed.ring_attention import ring_attention
+        if scale is not None:
+            raise ValueError("ring attention scores with Dh^-1/2 only")
         out = ring_attention(q, k, v, mesh, axis="model", causal=cfg.causal)
     else:
-        out = flash_attention(q, k, v, causal=cfg.causal)
+        out = flash_attention(q, k, v, causal=cfg.causal, scale=scale)
     return _output(out, params["wo"]), (k, v)
 
 
 def decode_attention(params: Params, x: torch.Tensor,
                      cache: Tuple[torch.Tensor, torch.Tensor],
-                     pos: torch.Tensor, cfg: AttnConfig):
+                     pos: torch.Tensor, cfg: AttnConfig, scale: Optional[float] = None):
     """Single-token decode: x (B, 1, D); cache k/v (B, S, KV, Dh); pos (B,)
-    current absolute position.  Returns (out, (k, v)).
+    current absolute position; ``scale`` as :func:`prefill_attention`'s.
+    Returns (out, (k, v)).
 
     The reference blends the new k/v in with a one-hot over S and returns
     new arrays; here they are written at ``pos`` by an index write into
@@ -185,7 +189,8 @@ def decode_attention(params: Params, x: torch.Tensor,
     cv[rows, pos] = v_new[:, 0]
     H = q.shape[2]
     qr = q.reshape(B, 1, KV, H // KV, Dh).float()
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qr, ck.float()) / math.sqrt(Dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qr, ck.float())
+    s = s / math.sqrt(Dh) if scale is None else s * scale
     valid = torch.arange(S, device=x.device)[None] <= pos[:, None]       # (B, S)
     s = torch.where(valid[:, None, None, None], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)

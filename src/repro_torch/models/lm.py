@@ -13,7 +13,8 @@ with the parameters inside the module instead of a pytree argument:
 ``decode_step`` writes the cache in place (k/v at ``pos``, a Mamba-2
 block's states at its layer's slot) and returns the tensors it was
 given, with ``pos + 1`` a new tensor.  The SSM models' ``prefill``
-(:class:`SSMModel`, :class:`HybridModel`, ``Zamba2Model``) allocates its
+(:class:`SSMModel`, :class:`HybridModel`, ``Zamba2Model``,
+``GraniteHybridModel``) allocates its
 cache once, in ``init_cache``'s layout for max(S, ``max_len``) positions,
 and writes it in place, the attention k/v zeros past S; the other
 families stack their k/v and pad them with zeros.
@@ -57,7 +58,7 @@ function:
 * ``moe_impl="sharded"`` runs ``moe.apply_moe_sharded`` on any mesh, one
   device included, as the reference does: its expert weights (and
   router) stay out of the block's gather, and the dispatch takes its own
-  shards of them;
+  shards of them (without a mesh it runs ``moe.apply_moe_dropless``);
 * serving (``prefill``, ``decode_step``) takes the global batch as
   DTensors, or plain tensors of this rank's shard, and serves this
   rank's batch shard through the same gathered blocks; the logits and
@@ -233,8 +234,10 @@ def chunked_ce_loss(table: torch.Tensor, hidden: torch.Tensor,
 
 class SSMBlock(nn.Module):
     """The pre-norm residual block around one Mamba-2 mixer, for every
-    model that has one: x + mixer(norm(x + t)), where t is an added term
-    (Zamba2's shared-block output) or None, and the residual adds onto x.
+    model that has one: x + m mixer(norm(x + t)), where t is an added term
+    (Zamba2's shared-block output) or None, the residual adds onto x, and
+    m is ``cfg.residual_multiplier`` (1 but for Granite-4.0-H; one
+    ``torch.add`` whatever m is).
     ``forward(x, t, states)`` serves three uses:
 
     * x (B, S, D), no ``states``: the full sequence (training, ``hidden``);
@@ -255,15 +258,16 @@ class SSMBlock(nn.Module):
     def forward(self, x: torch.Tensor, t: Optional[torch.Tensor] = None,
                 states: Optional[tuple] = None) -> torch.Tensor:
         h = _norm(self.ln, x if t is None else x + t, self.cfg)
+        m = self.cfg.residual_multiplier
         if states is None:
-            return x + self.mamba(h)
+            return torch.add(x, self.mamba(h), alpha=m)
         if x.dim() == 2:
             y, new = self.mamba.decode_step(h, states)
         else:
             y, new = self.mamba(h, return_state=True)
         for slot, state in zip(states, new):
             slot.copy_(state)
-        return x + y
+        return torch.add(x, y, alpha=m)
 
 
 def _slots(cache: Optional[Dict[str, Any]], i: int) -> Optional[tuple]:
@@ -320,11 +324,14 @@ def _apply_ffn(p: Block, x: torch.Tensor, cfg: ModelConfig, mesh=None):
     ``moe_impl="sharded"`` on a mesh, one device included, runs the
     sharded dispatch, whose capacity drops make another function than the
     dense one (reference ``src/repro/models/lm.py:131-141``); without a
-    mesh, or with ``moe_impl="dense"``, the dense dispatch runs."""
+    mesh it runs the dropless dispatch, the dense one's function at the
+    chosen pairs' work; ``moe_impl="dense"`` runs the dense dispatch."""
     if cfg.n_experts:
         if cfg.moe_impl == "sharded" and mesh is not None:
             return moem.apply_moe_sharded(p.moe, x, cfg.moe_top_k, cfg.n_experts, mesh,
                                           schedule=cfg.moe_schedule)
+        if cfg.moe_impl == "sharded":
+            return moem.apply_moe_dropless(p.moe, x, cfg.moe_top_k, cfg.n_experts)
         return moem.apply_moe_dense(p.moe, x, cfg.moe_top_k, cfg.n_experts, mesh)
     return mlpm.apply_mlp(p.mlp, x, cfg.mlp), None
 
@@ -697,9 +704,10 @@ class SSMModel(Model):
         return None
 
     def _cache(self, batch_size: int, seq_len: int, alloc) -> Dict[str, Any]:
-        """``init_cache``'s layout, its states and k/v made by ``alloc``
-        (``torch.zeros`` or ``torch.empty``), ``pos`` zeros."""
-        scfg, L, dev = self.ssm_cfg(), self.cfg.n_layers, self.device
+        """``init_cache``'s layout, its states (one slot per block) and
+        k/v made by ``alloc`` (``torch.zeros`` or ``torch.empty``), ``pos``
+        zeros."""
+        scfg, L, dev = self.ssm_cfg(), len(self.blocks), self.device
         cache = {"conv": alloc((L, batch_size, scfg.conv_width - 1, scfg.conv_dim),
                                dtype=self.dtype, device=dev),
                  "ssm": alloc((L, batch_size, scfg.n_heads, scfg.d_state, scfg.head_dim),
@@ -920,9 +928,11 @@ class EncDecModel(Model):
 
 
 from .zamba2 import Zamba2Model  # noqa: E402  (built on SSMModel, defined above)
+from .granite_hybrid import GraniteHybridModel  # noqa: E402  (likewise)
 
 _FAMILIES = {"dense": Model, "moe": Model, "vlm": VLMModel, "ssm": SSMModel,
-             "hybrid": HybridModel, "zamba2": Zamba2Model, "audio": EncDecModel}
+             "hybrid": HybridModel, "zamba2": Zamba2Model,
+             "granite_hybrid": GraniteHybridModel, "audio": EncDecModel}
 
 
 def build_model(cfg: ModelConfig, device: str = "cuda",

@@ -1,5 +1,7 @@
-"""Mixture-of-Experts FFN: the top-k router, the dense dispatch and the
-sharded dispatch with its three schedules (mirrors ``src/repro/models/moe.py``).
+"""Mixture-of-Experts FFN: the top-k router, the dense dispatch, the
+dropless one-device dispatch and the sharded dispatch with its three
+schedules (mirrors ``src/repro/models/moe.py``; the dropless dispatch is
+the port's own).
 
 ``apply_moe_dense`` is the reference's semantics: exact top-k of the
 softmax, renormalised, no capacity and no drops; every expert runs over
@@ -11,6 +13,17 @@ to XLA.  On a mesh its load-balancing loss is the reference's over the
 global batch: the token counts per expert are summed over the batch
 shards, and each rank's loss is its share, whose sum over the shards is
 the global loss (:func:`aux_load_balance_loss`).
+
+``apply_moe_dropless`` computes the same function at the work the chosen
+pairs need, on one device: the (token, choice) pairs sorted by expert,
+each expert's SwiGLU over its own rows only, then each token's k outputs
+weighed by their gates and summed.  On the card (bf16, no gradient) the
+products are ``torch._grouped_mm`` over the experts' row ranges, whose
+ends stay on the device, so nothing waits for the card; elsewhere one
+``torch.mm`` per expert that has rows.  It adds to the tallies
+``moe.pairs`` (T k) and ``moe.max_expert_rows`` (the busiest expert's
+rows), and opens the spans ``granite.moe.route`` and
+``granite.moe.experts``.
 
 ``apply_moe_sharded`` is the production dispatch on a mesh: each rank
 routes its own tokens, scatters the pairs each expert can take into an
@@ -41,6 +54,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.distributed import collectives as col
 from repro_torch.sharding.rules import BATCH_AXES, PartitionSpec, mesh_axes, placements
+from repro_torch.tracing import recording, span, tally
 from .common import Params, dense_init
 
 
@@ -109,6 +123,78 @@ def apply_moe_dense(params: Params, x: torch.Tensor, top_k: int,
     ye = _expert_ffn(params["w_gate"], params["w_up"], params["w_down"], xe)
     y = torch.einsum("etd,te->td", ye, combine.reshape(B * S, n_experts))
     return y.reshape(B, S, D), aux_load_balance_loss(logits, idx, n_experts, mesh)
+
+
+# ---------------------------------------------------------------------------
+# dropless one-device dispatch
+# ---------------------------------------------------------------------------
+
+def _grouped(x: torch.Tensor, *ws: torch.Tensor) -> bool:
+    """Whether ``torch._grouped_mm`` takes these products: bf16 on the card,
+    rows 16 bytes wide, and no gradient to carry."""
+    return (x.is_cuda and hasattr(torch, "_grouped_mm")
+            and all(t.dtype == torch.bfloat16 and t.shape[-1] % 8 == 0 for t in (x, *ws))
+            and not (torch.is_grad_enabled() and any(t.requires_grad for t in (x, *ws))))
+
+
+def _experts_grouped(xs: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+                     w_down: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
+    """xs (M, D), its rows sorted by expert, expert e's rows ending at
+    ``ends[e]`` -> (M, D): each row through its expert's SwiGLU, three
+    grouped products."""
+    g = torch._grouped_mm(xs, w_gate, offs=ends)
+    u = torch._grouped_mm(xs, w_up, offs=ends)
+    return torch._grouped_mm(F.silu(g) * u, w_down, offs=ends)
+
+
+def _experts_looped(xs: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+                    w_down: torch.Tensor, counts: List[int]) -> torch.Tensor:
+    """:func:`_experts_grouped` with the row counts on the host, one expert
+    at a time."""
+    out, start = [], 0
+    for e, n in enumerate(counts):
+        if n:
+            r = xs[start:start + n]
+            out.append(torch.mm(F.silu(torch.mm(r, w_gate[e])) * torch.mm(r, w_up[e]), w_down[e]))
+        start += n
+    return torch.cat(out) if out else xs.new_zeros((0, w_down.shape[-1]))
+
+
+def apply_moe_dropless(params: Params, x: torch.Tensor, top_k: int, n_experts: int,
+                       with_aux: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """:func:`apply_moe_dense`'s function on one device at the work the
+    chosen pairs need.  x: (..., D) -> (y of x's shape, aux), aux None
+    unless ``with_aux``.  The token gather and the combine run outside the
+    two spans, in the caller's, so that a caller's device range spans the
+    experts' products."""
+    D = x.shape[-1]
+    xf = x.reshape(-1, D)
+    T = xf.shape[0]
+    with span("granite.moe.route", T=T, E=n_experts, k=top_k):
+        idx, gates, logits = router_probs(params["router"], xf, top_k)   # (T, k)
+        by_expert, order = torch.sort(idx.reshape(-1), stable=True)   # pair order within one
+        ends = torch.searchsorted(by_expert, torch.arange(1, n_experts + 1,
+                                                          device=by_expert.device))
+        counts = torch.diff(ends, prepend=ends.new_zeros(1))
+        busiest = counts.max()
+    tally("moe.pairs", T * top_k)
+    tally("moe.max_expert_rows", busiest)
+    ws = (params["w_gate"], params["w_up"], params["w_down"])
+    attrs = ({"pairs": T * top_k, "max_rows": busiest, "experts": torch.count_nonzero(counts)}
+             if recording() else {})
+    xs = xf.index_select(0, order // top_k)                 # the pairs' rows, by expert
+    with span("granite.moe.experts", **attrs):
+        if _grouped(xs, *ws):
+            ys = _experts_grouped(xs, *ws, ends.to(torch.int32))
+        else:
+            ys = _experts_looped(xs, *ws, counts.tolist())
+    del xs
+    back = torch.empty_like(order).scatter_(0, order, torch.arange(order.numel(),
+                                                                   device=order.device))
+    ys = ys.index_select(0, back).view(T, top_k, D)         # each token's k outputs
+    y = torch.bmm(gates.view(T, 1, top_k), ys).view(x.shape)
+    aux = aux_load_balance_loss(logits, idx, n_experts) if with_aux else None
+    return y, aux
 
 
 # ---------------------------------------------------------------------------

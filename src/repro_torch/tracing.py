@@ -19,7 +19,12 @@ span's parent is the innermost span open on its own thread, or, on a
 thread with none open, the innermost span open on the unit's thread.
 
 Counters (:func:`count`) are always on and are called off the hot path
-only (kernel builds).
+only (kernel builds).  Tallies (:func:`tally`) are always on too and may
+sit on the hot path: each adds a value, a number or a 0-dim tensor on the
+card, to a running total and a running maximum without waiting for the
+card, which is read only when :func:`tallies` is called.  A span's
+attribute may likewise be a 0-dim tensor, read when :func:`spans` is
+called.
 """
 
 from __future__ import annotations
@@ -66,6 +71,7 @@ _ids = itertools.count(1)
 _unit: List[Optional[tuple]] = [None]
 _local = threading.local()
 _counters: Dict[str, List] = {}
+_tallies: Dict[str, List] = {}
 _lock = threading.Lock()
 
 
@@ -132,9 +138,23 @@ def unit(name: str, **attrs):
     return _Open(name, attrs, True)
 
 
+def recording() -> bool:
+    """Whether spans are recorded now (a ``torch.profiler`` session is on):
+    an attribute that costs work is computed only then."""
+    return _enabled()
+
+
+def _read(span: Span) -> Span:
+    for k, v in span.attrs.items():
+        if isinstance(v, torch.Tensor):
+            span.attrs[k] = v.item()
+    return span
+
+
 def spans() -> List[Span]:
-    """The finished spans in the buffer, in the order they closed."""
-    return list(_buffer)
+    """The finished spans in the buffer, in the order they closed; an
+    attribute given as a tensor is read (and kept) as its number."""
+    return [_read(s) for s in list(_buffer)]
 
 
 def reset() -> None:
@@ -154,3 +174,33 @@ def counters() -> Dict[str, Dict[str, float]]:
     """Every counter: ``{name: {"count": n, "seconds": s}}``."""
     with _lock:
         return {k: {"count": n, "seconds": s} for k, (n, s) in _counters.items()}
+
+
+def tally(name: str, value) -> None:
+    """Adds one call and ``value`` (an int, or a 0-dim integer tensor on
+    any device, which is not read here) to the tally ``name``: its running
+    total and its running maximum."""
+    with _lock:
+        t = _tallies.get(name)
+        if t is None:
+            _tallies[name] = [1, value, value]
+        else:
+            t[0] += 1
+            t[1] = t[1] + value
+            on = next((v.device for v in (value, t[2]) if isinstance(v, torch.Tensor)), None)
+            t[2] = max(t[2], value) if on is None else torch.maximum(
+                torch.as_tensor(t[2], device=on), torch.as_tensor(value, device=on))
+
+
+def tallies() -> Dict[str, Dict[str, int]]:
+    """Every tally: ``{name: {"count": calls, "total": sum, "max": largest}}``
+    (reading a value kept on the card waits for it)."""
+    with _lock:
+        return {k: {"count": n, "total": int(total), "max": int(top)}
+                for k, (n, total, top) in _tallies.items()}
+
+
+def reset_tallies() -> None:
+    """Forgets every tally."""
+    with _lock:
+        _tallies.clear()

@@ -214,8 +214,10 @@ def test_greedy_generate_matches_reference(pair):
 
 
 def test_sharded_impl_runs_the_dense_dispatch():
-    """A config asking for the sharded dispatch runs the dense one on one
-    card, as the reference does without a mesh."""
+    """A config asking for the sharded dispatch runs, without a mesh, the
+    dropless dispatch, which computes the dense one's function (here, at
+    float32 on the CPU, bit for bit), as the reference runs the dense one
+    without a mesh."""
     cfg = reduced(get_config("granite-moe-1b-a400m"))
     dense = build_model(cfg, device="cpu")
     sharded = build_model(cfg.replace(moe_impl="sharded"), device="cpu")

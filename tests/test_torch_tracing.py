@@ -289,3 +289,43 @@ def test_spans_leave_device_ranges_on_the_card(card):
     kernels = collections.Counter(s.attrs["kernel"] for s in spans
                                   if s.name == "autograd.backward")
     assert kernels == {"conv1d": 3, "ssd": 3, "gated_norm": 3}
+
+
+@pytest.mark.cuda
+def test_granite_moe_ranges_hold_the_experts_kernels(card):
+    """A bf16 Granite-4.0-H prefill at a small width on the card: each
+    ``granite.moe`` device range holds its ``granite.moe.experts`` range
+    and the kernels launched there (the grouped products), and the tallies
+    count the pairs and the busiest expert's rows without a sync."""
+    from torch.autograd import DeviceType
+
+    from repro_torch.configs import reduced
+
+    cfg = reduced(get_config("granite-4.0-h-small")).replace(
+        moe_impl="sharded", dtype="bfloat16", d_model=256, n_heads=2, n_kv_heads=1,
+        ssm_head_dim=64, ssm_state=64, ssm_chunk=64, d_ff=128, shared_ff=256, n_experts=16,
+        moe_top_k=4)
+    model = build_model(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    tokens = _tokens(128, "cuda")
+    model.prefill({"tokens": tokens})
+    tracing.reset_tallies()
+    spans, prof = _traced(lambda: model.prefill({"tokens": tokens}),
+                          (ProfilerActivity.CPU, ProfilerActivity.CUDA))
+    ranges = collections.defaultdict(list)
+    kernels = []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if e.name.startswith(tracing.PREFIX):
+            ranges[e.name[len(tracing.PREFIX):]].append((e.time_range.start, e.time_range.end))
+        elif not getattr(e, "is_user_annotation", False):
+            kernels.append((e.time_range.start, e.name))
+    moe_ranges, experts = ranges["granite.moe"], ranges["granite.moe.experts"]
+    assert len(moe_ranges) == len(experts) == cfg.n_layers
+    for a, b in experts:
+        assert any(s <= a <= b <= e for s, e in moe_ranges)
+        inside = [n for t, n in kernels if a <= t <= b]
+        assert inside, "no kernel in a granite.moe.experts range"
+    t = tracing.tallies()
+    assert t["moe.pairs"]["total"] == cfg.n_layers * B * 128 * cfg.moe_top_k
+    assert 0 < t["moe.max_expert_rows"]["max"] <= B * 128

@@ -450,7 +450,7 @@ class _Mesh:
 def test_launch_train_refuses_what_is_not_ported():
     """A mesh without its ranks, an unknown arch and an unknown MoE
     schedule on a mesh raise; without a mesh ``moe_impl="sharded"`` runs
-    the dense dispatch.  The multi-rank paths themselves are in
+    the dropless dispatch.  The multi-rank paths themselves are in
     tests/test_torch_distributed.py and tests/test_torch_moe_sharded.py."""
     with pytest.raises(RuntimeError, match="2 ranks"):
         ttrain.main(["--arch", "olmo-1b", "--reduced", "--device", "cpu", "--mesh", "2x1"])
@@ -462,4 +462,4 @@ def test_launch_train_refuses_what_is_not_ported():
     x = torch.zeros(2, 8, cfg.d_model)
     with pytest.raises(ValueError, match="unknown MoE schedule"):
         lm._apply_ffn(model.blocks[0], x, cfg, _Mesh())
-    assert lm._apply_ffn(model.blocks[0], x, cfg)[0].shape == x.shape   # no mesh: dense
+    assert lm._apply_ffn(model.blocks[0], x, cfg)[0].shape == x.shape   # no mesh: dropless
